@@ -2,9 +2,9 @@
 
 The camera is a differentiable pytree (models/camera.py; the reference's
 matrix camera, src/rvpt/camera.cpp:17-155): gradients flow
-camera -> camera_matrix -> generate_rays -> trace, and with the fast path
-the kernel pullback (ops.fast_grad) hands ray origin/direction cotangents
-back to XLA, which transposes them through generate_rays automatically.
+camera -> camera_matrix -> generate_rays -> trace, and with the hit-record
+gradient (ops.fast_grad) the replay's pullback hands ray origin/direction
+cotangents back to XLA, which transposes them through generate_rays.
 
 What this example demonstrates — and what it deliberately does not:
 

@@ -1,9 +1,10 @@
 """Multi-host rendering launcher (the distributed flow of PARITY.md).
 
-Run one copy per host/process; pass the coordinator address and this
-process's rank.  On a TPU pod the three arguments are auto-detected — just
-run the script with no flags on every host.  For a local 2-process demo on
-CPU (4 virtual devices each, as in tests/test_distributed.py):
+Run one copy per GPU; pass the coordinator address, the process count and
+this process's rank.  With ``--pin-device`` each process claims only the
+card whose index equals its rank (one process per card on a 4-GPU host:
+ranks 0-3, ``--pin-device``).  For a local 2-process demo on CPU (4 virtual
+devices each, as in tests/test_distributed.py):
 
     XLA_FLAGS=--xla_force_host_platform_device_count=4 JAX_PLATFORMS=cpu \
       python examples/multihost_render.py --coordinator localhost:9781 \
@@ -27,24 +28,26 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 def main():
     p = argparse.ArgumentParser()
     p.add_argument("--coordinator", default=None,
-                   help="host:port of process 0 (auto-detected on TPU pods)")
+                   help="host:port of process 0")
     p.add_argument("--num-processes", type=int, default=None)
     p.add_argument("--process-id", type=int, default=None)
     p.add_argument("--size", default="256x128")
     p.add_argument("--frames", type=int, default=8)
     p.add_argument("--out", default="out/multihost.png")
+    p.add_argument("--pin-device", action="store_true",
+                   help="use only the local card whose index is the rank")
     args = p.parse_args()
 
-    # jax.distributed.initialize must run before anything touches devices.
+    # jax.distributed.initialize must run before anything touches devices
+    # (importing rvpt_tpu does), so it is called here directly.
     import jax
 
-    if os.environ.get("JAX_PLATFORMS"):
-        jax.config.update("jax_platforms", os.environ["JAX_PLATFORMS"])
     jax.distributed.initialize(**{
         k: v for k, v in dict(
             coordinator_address=args.coordinator,
             num_processes=args.num_processes,
             process_id=args.process_id,
+            local_device_ids=[args.process_id] if args.pin_device else None,
         ).items() if v is not None
     })
 

@@ -2,7 +2,7 @@
 //
 // The reference implements its scene-ingest hot path in C++ (binned-SAH BVH
 // builder, src/rvpt/bvh_builder.cpp:11-199; tinyobjloader mesh ingest,
-// src/rvpt/main.cpp:12-62).  These are the TPU-native equivalents: same
+// src/rvpt/main.cpp:12-62).  These are the native equivalents here: same
 // algorithms, exposed through a C ABI consumed via ctypes (rvpt_tpu.native).
 // Device-side compute stays in XLA/Pallas; this is host-side scene build.
 //

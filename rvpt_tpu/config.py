@@ -3,7 +3,7 @@
 The analog of the reference's ``RVPT::RenderSettings`` (src/rvpt/rvpt.h:77-89)
 mirrored 1:1 into a uniform block (compute_pass.comp:28-40).  Here it is a
 frozen, hashable dataclass used as a jit-static argument: changing a setting
-re-specializes the compiled program — the TPU-native counterpart of the
+re-specializes the compiled program — the counterpart of the
 reference rebuilding its command buffers on settings change.
 """
 

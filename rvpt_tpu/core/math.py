@@ -2,7 +2,7 @@
 
 Vectors are ``f32[..., 3]`` arrays; every function is shape-polymorphic over
 leading batch dimensions so the whole film's worth of rays is processed as one
-vectorized program (the TPU-native replacement for the reference's per-pixel
+vectorized program (the replacement for the reference's per-pixel
 GLSL helpers, reference: assets/shaders/util.glsl:54-156).
 """
 

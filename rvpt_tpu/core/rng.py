@@ -2,7 +2,7 @@
 
 The reference keeps a per-pixel xorshift32 state seeded with
 ``wang_hash(pixel_index) + frame`` (reference: assets/shaders/util.glsl:25-50).
-Mutable per-lane state is the wrong shape for XLA, so the TPU-native design is
+Mutable per-lane state is the wrong shape for XLA, so the design here is
 a *counter-based* hash RNG: every draw is a pure function of
 ``(pixel, frame, lane, salt)``.  That gives
 

@@ -3,9 +3,8 @@
 Vectorized re-design of the reference's material library
 (assets/shaders/material.glsl) and of the per-bounce material switch shared by
 the Whitted/Cook/Kajiya integrators (assets/shaders/integrators.glsl:584-668):
-instead of a divergent ``switch``, all three material branches are evaluated on
-the VPU and combined with ``where`` masks — uniform control flow, which is what
-the TPU wants.
+instead of a divergent ``switch``, all three material branches are evaluated
+and combined with ``where`` masks — uniform control flow over the ray batch.
 
 Differentiability: albedo/emission/ior gradients flow through the throughput
 products; the stochastic Fresnel branch and the discrete material select are

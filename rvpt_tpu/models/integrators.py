@@ -26,7 +26,8 @@ from ..core import rng
 from ..core.math import mix, normalize, vdot
 from ..core.types import Ray
 from ..ops import sdf as sdf_ops
-from ..ops.intersect import intersect_scene, occluded
+from ..ops.intersect import (closest_hit_scene, intersect_scene,
+                             isect_from_hit, occluded)
 from ..scene.materials import LAMBERT, gather
 from . import brdf
 
@@ -158,12 +159,9 @@ def _remat(step):
 
 
 def _flat_scan(step, init, xs):
-    """lax.scan whose [N,3] carry components are stored as flat [N] arrays.
-
-    TPU tiles the last two dims of stored buffers as (8,128); a per-bounce
-    carry stack shaped [bounces, N, 3] pads the 3-wide axis to 128 (42.7x
-    memory, observed OOM at 1080p).  Packing to per-component [N] vectors
-    stores exactly the data; the stack/unstack fuses into the bounce body.
+    """Rematerialized lax.scan whose [N,3] carry components are stored as
+    flat [N] arrays (the residual stack the backward keeps per bounce); the
+    stack/unstack fuses into the bounce body.
     """
     is3 = [a.ndim == 2 and a.shape[-1] == 3 for a in init]
 
@@ -197,14 +195,22 @@ def _bounce_rands(pixel, frame, salt_base, bounce):
     return rng.uniform3(pixel, frame, salt)
 
 
-def integrator_kajiya(scene, ray, pixel, frame, settings, salt_base=0):
-    """Standard path tracing (integrators.glsl:547-677)."""
-    nbounce = int(settings.max_bounces)
+def kajiya_with_hits(scene, ray, pixel, frame, max_bounces: int,
+                     style: str = "reference", salt_base=0):
+    """Standard path tracing (integrators.glsl:547-677) that also returns
+    each bounce's detached hit record.
+
+    Returns (radiance f32[N,3], fams i32[B,N], idxs i32[B,N]): the primitive
+    family and index ``closest_hit_scene`` chose at every bounce — the
+    forward half of the hit-record gradient (ops.fast_grad).
+    """
+    nbounce = int(max_bounces)
     n = ray.origin.shape[0]
 
     def step(carry, bounce):
         o, d, col, thr, active, result = carry
-        isect = intersect_scene(scene, Ray(o, d), 0.0, INF)
+        fam, idx, _ = closest_hit_scene(scene, Ray(o, d), 0.0, INF)
+        isect = isect_from_hit(scene, Ray(o, d), fam, idx, 0.0)
         hit = isect.hit
         miss_now = active & ~hit
         sky = _sky(d, half_shift=True)
@@ -222,7 +228,7 @@ def integrator_kajiya(scene, ray, pixel, frame, settings, salt_base=0):
         thr = jnp.where(active[:, None], thr * fac, thr)
         o = jnp.where(active[:, None], pos_out, o)
         d = jnp.where(active[:, None], dir_out, d)
-        return (o, d, col, thr, active, result), None
+        return (o, d, col, thr, active, result), (fam, idx)
 
     init = (
         ray.origin,
@@ -232,12 +238,18 @@ def integrator_kajiya(scene, ray, pixel, frame, settings, salt_base=0):
         jnp.ones((n,), bool),
         jnp.zeros((n, 3), jnp.float32),
     )
-    (o, d, col, thr, active, result), _ = _flat_scan(
+    (o, d, col, thr, active, result), (fams, idxs) = _flat_scan(
         step, init, jnp.arange(nbounce, dtype=jnp.uint32)
     )
-    if settings.style == "standard":
+    if style == "standard":
         result = result + jnp.where(active[:, None], col, 0.0)
-    return result
+    return result, fams, idxs
+
+
+def integrator_kajiya(scene, ray, pixel, frame, settings, salt_base=0):
+    """Standard path tracing (integrators.glsl:547-677)."""
+    return kajiya_with_hits(scene, ray, pixel, frame, settings.max_bounces,
+                            settings.style, salt_base)[0]
 
 
 def integrator_whitted(scene, ray, pixel, frame, settings, salt_base=0):

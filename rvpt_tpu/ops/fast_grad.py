@@ -1,26 +1,22 @@
-"""Hand-paired forward/backward for the Kajiya path tracer.
+"""Hit-record gradient for the Kajiya path tracer.
 
-The north-star requirement (BASELINE.md): forward+backward intersection/
-shading at speed-of-light.  Autodiff through the XLA integrator spends most
-of its time re-searching primitives in the rematerialized backward.  This
-module pairs:
+Autodiff through the XLA integrator re-runs every closest-hit search in its
+rematerialized backward.  This module pairs:
 
-  forward   = the fused whole-path Pallas kernel (ops.pathkernel), which
-              also emits the per-bounce hit records (family, index) and
-              bounce-input states;
-  backward  = reverse-mode AD of an XLA *replay from hits*: the same bounce
-              chain with every closest-hit search replaced by the O(N)
-              differentiable rebuild of the recorded winner
-              (ops.intersect.isect_from_hit) — no [rays x prims] work at all.
+  forward   = the XLA Kajiya bounce chain (models.integrators
+              .kajiya_with_hits), which records the detached (family,
+              index) that ``closest_hit_scene`` picked at every bounce;
+  backward  = reverse-mode AD of a *replay from hits* (ops.replay_soa): the
+              same bounce chain with every closest-hit search replaced by the
+              O(N) differentiable rebuild of the recorded winner — no
+              [rays x prims] work at all.
 
-This is the "hand-derived backward through the intersection and shading
-chain": the discrete search is computed once (forward, fused kernel), and the
-differentiable chain is replayed exactly, reusing identical RNG streams.
+The discrete search runs once, in the forward; the differentiable chain is
+replayed exactly, reusing identical RNG streams.  Nothing here depends on
+the platform: the forward's search follows ``ops.route``.
 """
 
 from __future__ import annotations
-
-from functools import partial
 
 import jax
 import jax.numpy as jnp
@@ -29,19 +25,20 @@ import numpy as np
 from ..core.math import normalize
 from ..core.types import Ray
 from ..models import brdf
-from ..models.integrators import _bounce_rands, _flat_scan, _sky
+from ..models.integrators import (_bounce_rands, _flat_scan, _sky,
+                                  kajiya_with_hits)
 from ..scene.materials import gather
 from .intersect import isect_from_hit
-from .pathkernel import PathTracer
 
 
 def kajiya_from_hits(scene, ray, pixel, frame, salt_base, fams, idxs,
                      style="reference"):
     """Differentiable replay of a Kajiya trace given per-bounce hit records.
 
-    fams/idxs: i32[B, N] hit records (PathTracer.hits_from_record).
-    Returns radiance f32[N, 3].  Matches the path kernel's output up to fma
-    rounding, but is fully differentiable w.r.t. scene and rays.
+    fams/idxs: i32[B, N] hit records (models.integrators.kajiya_with_hits).
+    Returns radiance f32[N, 3]: the [N,3]-layout twin of
+    ops.replay_soa.kajiya_replay_soa, fully differentiable w.r.t. scene and
+    rays.
     """
     n = ray.origin.shape[0]
     nbounce = fams.shape[0]
@@ -86,71 +83,26 @@ def kajiya_from_hits(scene, ray, pixel, frame, salt_base, fams, idxs,
 
 
 def make_fast_kajiya(scene_template, salt_base: int, max_bounces: int,
-                     style: str = "reference", interpret: bool = False,
-                     backward: str = "auto"):
-    """Build the custom-VJP Kajiya trace for scenes with this template's
-    static shape.  Returns trace(scene, origin, direction, pixel, frame)
-    -> radiance f32[N,3].
-
-    ``backward`` selects the pullback implementation:
-      - "pallas": fully-fused whole-chain Pallas pullback (ops.pathkernel
-        .bwd_path) — in-kernel vjp of the replay chain, scene grads as masked
-        sublane+lane reductions; the fast path for kernel-scale scenes.
-      - "soa": XLA reverse-AD of the component-SoA replay (ops.replay_soa).
-      - "auto": "pallas" when every scene table fits the kernel's one-hot
-        select width, else "soa".
+                     style: str = "reference"):
+    """Build the custom-VJP Kajiya trace for scenes shaped like
+    ``scene_template``.  Returns trace(scene, origin, direction, pixel,
+    frame, salt=0) -> radiance f32[N,3]; ``salt`` is an extra traced u32
+    RNG-stream offset (e.g. per spp rank) added to the static ``salt_base``.
     """
-    from .pathkernel import BigMeshTracer, is_bigmesh
+    del scene_template  # shapes come from the traced scene
 
-    bigmesh = is_bigmesh(scene_template)
-    if backward == "auto":
-        backward = ("soa" if bigmesh
-                    else "pallas" if scene_template.num_triangles <= 1024
-                    else "soa")
-    if backward == "pallas":
-        return _make_fast_kajiya_pk(
-            scene_template, salt_base, max_bounces, style, interpret
-        )
-
-    def _fwd_trace(scene, origin, direction, pixel, frame, salt):
-        if bigmesh:
-            # Chunked per-bounce kernel forward; hit records come straight
-            # from its collect outputs (fams/idxs already [B, N]).
-            # Single-chunk scenes skip the wavefront sorts: at 1,282 tris
-            # the sorts are runtime-NEUTRAL for the gradient path (walk
-            # penalty ~= sort cost + record unsorts saved) while each
-            # sort instance costs ~240 s of XLA compile (round-5 sort
-            # diagnosis) — sort-free, the mesh-gradient forward compiles
-            # in ~15 s instead of ~250 s, which is the iteration-latency
-            # fix for the inverse-rendering workflow (VERDICT r4 item 3).
-            bt = BigMeshTracer(scene)
-            (r, g, b), (fams, idxs) = bt.trace(
-                pixel, origin, direction, frame,
-                jnp.asarray(salt, jnp.uint32) + jnp.uint32(salt_base),
-                max_bounces, style=style, interpret=interpret,
-                collect_hits=True,
-                sort_rays=bt.meta["n_chunks"] > 1,
-            )
-            return jnp.stack([r, g, b], axis=-1), fams, idxs
-        pt = PathTracer(scene)
-        (r, g, b), record = pt.trace(
-            pixel, origin, direction, frame,
-            jnp.asarray(salt, jnp.uint32) + jnp.uint32(salt_base),
-            max_bounces, style=style, interpret=interpret,
-            collect_states=True,
-        )
-        fams, idxs = pt.hits_from_record(record, pixel.shape[0], max_bounces)
-        return jnp.stack([r, g, b], axis=-1), fams, idxs
+    def _forward(scene, origin, direction, pixel, frame, salt):
+        return kajiya_with_hits(
+            scene, Ray(origin, direction), pixel, frame, max_bounces, style,
+            jnp.asarray(salt, jnp.uint32) + jnp.uint32(salt_base))
 
     @jax.custom_vjp
     def trace6(scene, origin, direction, pixel, frame, salt):
-        out, _, _ = _fwd_trace(scene, origin, direction, pixel, frame, salt)
-        return out
+        return _forward(scene, origin, direction, pixel, frame, salt)[0]
 
     def fwd(scene, origin, direction, pixel, frame, salt):
-        out, fams, idxs = _fwd_trace(
-            scene, origin, direction, pixel, frame, salt
-        )
+        out, fams, idxs = _forward(scene, origin, direction, pixel, frame,
+                                   salt)
         return out, (scene, origin, direction, pixel, frame, salt, fams, idxs)
 
     def bwd(res, g):
@@ -179,88 +131,6 @@ def make_fast_kajiya(scene_template, salt_base: int, max_bounces: int,
     trace6.defvjp(fwd, bwd)
 
     def trace(scene, origin, direction, pixel, frame, salt=0):
-        return trace6(scene, origin, direction, pixel, frame,
-                      jnp.asarray(salt, jnp.uint32))
-
-    return trace
-
-
-def _zero_cotangent(x):
-    """Zero cotangent leaf: zeros for inexact dtypes, float0 for discrete."""
-    if jnp.issubdtype(jnp.result_type(x), jnp.inexact):
-        return jnp.zeros_like(x)
-    return np.zeros(jnp.shape(x), jax.dtypes.float0)
-
-
-def _make_fast_kajiya_pk(scene_template, salt_base: int, max_bounces: int,
-                         style: str, interpret: bool):
-    """Custom-VJP trace whose backward is the fused Pallas pullback."""
-    import dataclasses
-
-    from .pathkernel import (PathTracer, _from_tiles, _to_tiles, bwd_path,
-                             scene_grads_from_tables)
-
-    def _fwd_trace(scene, origin, direction, pixel, frame, salt):
-        pt = PathTracer(scene)
-        (r, g, b), record = pt.trace(
-            pixel, origin, direction, frame,
-            jnp.asarray(salt, jnp.uint32) + jnp.uint32(salt_base),
-            max_bounces, style=style, interpret=interpret,
-            collect_states=True,
-        )
-        return jnp.stack([r, g, b], axis=-1), record
-
-    @jax.custom_vjp
-    def trace6(scene, origin, direction, pixel, frame, salt):
-        out, _ = _fwd_trace(scene, origin, direction, pixel, frame, salt)
-        return out
-
-    def fwd(scene, origin, direction, pixel, frame, salt):
-        out, record = _fwd_trace(scene, origin, direction, pixel, frame, salt)
-        return out, (scene, record, frame, salt)
-
-    def bwd(res, g):
-        scene, record, frame, salt = res
-        n = g.shape[0]
-        g_rows = tuple(_to_tiles(g[:, k]) for k in range(3))
-        gtabs, go, gd = bwd_path(
-            scene, record, frame, g_rows,
-            jnp.asarray(salt, jnp.uint32) + jnp.uint32(salt_base), style,
-            interpret=interpret,
-        )
-        grads = scene_grads_from_tables(scene, gtabs)
-        g_scene = jax.tree.map(_zero_cotangent, scene)
-        g_scene = dataclasses.replace(
-            g_scene,
-            tri_v0=grads["tri_v0"], tri_v1=grads["tri_v1"],
-            tri_v2=grads["tri_v2"],
-            sph_center=grads["sph_center"], sph_radius=grads["sph_radius"],
-            pln_normal=grads["pln_normal"], pln_d=grads["pln_d"],
-            materials=dataclasses.replace(
-                g_scene.materials,
-                albedo=grads["albedo"], emission=grads["emission"],
-                ior=grads["ior"],
-            ),
-        )
-
-        def unrow(rows):
-            return jnp.stack([_from_tiles(r, n) for r in rows], axis=-1)
-
-        f0 = jax.dtypes.float0
-        return (
-            g_scene,
-            unrow(go),
-            unrow(gd),
-            np.zeros((n,), f0),
-            np.zeros(jnp.shape(frame), f0),
-            np.zeros(jnp.shape(salt), f0),
-        )
-
-    trace6.defvjp(fwd, bwd)
-
-    def trace(scene, origin, direction, pixel, frame, salt=0):
-        """salt: extra traced u32 RNG-stream offset (e.g. per spp rank),
-        added to the static salt_base."""
         return trace6(scene, origin, direction, pixel, frame,
                       jnp.asarray(salt, jnp.uint32))
 

@@ -7,10 +7,9 @@ is a pytree ``(accum f32[3,H,W], frame u32)``; the EMA update is a pure
 differentiable function and the dirty-reset is a traced ``where`` so resets
 don't retrace.
 
-The accumulation buffer is channels-FIRST: TPU tiles the trailing two dims of
-a stored array as (8,128), so [H,W,3] would pad its 3-wide axis to 128 — a
-42.7x waste (1 GB at 1080p); [3,H,W] pads nothing.  Host-side consumers
-convert with ``chw_to_hwc``.
+The accumulation buffer is channels-FIRST ([3,H,W]): each channel is one
+contiguous plane, the layout every render path produces.  Host-side
+consumers convert with ``chw_to_hwc``.
 """
 
 from __future__ import annotations

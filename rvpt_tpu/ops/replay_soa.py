@@ -1,23 +1,18 @@
 """Component-SoA differentiable replay of the Kajiya bounce chain.
 
-The backward half of the fast gradient pipeline (ops.fast_grad): given the
-megakernel's per-bounce hit records, replay the trace differentiably.  This
-version keeps EVERY intermediate as flat [N] component arrays — never [N,3] —
-because a materialized [N,3] buffer on TPU pads its 3-wide axis to 128 lanes
-(42.7x, ~4ms of HBM traffic each at 1080p).  Gathers are per-component [N]
-lookups (fast on TPU, measured 0.05ms); the scan carries are already flat.
+The backward half of the hit-record gradient (ops.fast_grad): given the
+forward's per-bounce hit records, replay the trace differentiably.  Every
+intermediate is a flat [N] component array and every table lookup a
+per-component gather, so the pullback is elementwise work plus one
+scatter-add per looked-up table and bounce.
 
-Semantically identical to ops.fast_grad.kajiya_from_hits (tested), just laid
-out for the hardware; this is the hand-tuned differentiable intersection+
-shading chain of the north star.
+Semantically identical to ops.fast_grad.kajiya_from_hits (tested).
 """
 
 from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
-
-from functools import partial
 
 from ..core.math import INV_PI, PI, TWO_PI
 
@@ -36,409 +31,28 @@ def _rsqrt_safe(x):
 
 
 # Tables at or below this row count use the select-sum lookup; larger ones
-# fall back to a real gather.
+# use a plain gather, whose transpose XLA emits as a scatter-add.
 _LOOKUP_UNROLL = 64
 
 
 def _lookup(table, idx):
-    """table[idx] for small tables WITHOUT a gather primitive.
-
-    TPU lowers a gather fused into a large loop fusion as a serialized scalar
-    loop — profiled at ~18ms per backward-bounce fusion at 1080p.  For small
-    tables an unrolled sum of masked broadcasts stays fully vectorized in
-    both the forward and the transpose (the cotangent becomes a masked
-    reduction), keeping the whole bounce backward on the VPU.
-    """
+    """table[idx]: an unrolled sum of masked broadcasts for small tables
+    (the cotangent becomes a masked reduction instead of a scatter), a
+    plain gather above ``_LOOKUP_UNROLL`` rows.  ``idx`` must lie in
+    [0, len(table))."""
     t = table.shape[0]
     if t > _LOOKUP_UNROLL:
-        # (Measured: optimization_barrier around this gather does NOT
-        # recover the standalone-gather speed at 20k rows — 1,675 ms
-        # unchanged; the serialization is in the gather itself at that
-        # table size, not only the fusion.  The MXU one-hot path below is
-        # the fix where its N*T*C work is affordable.)
-        return table[jnp.clip(idx, 0, t - 1)]
+        return table[idx]
     out = jnp.zeros(idx.shape, table.dtype)
     for k in range(t):
         out = jnp.where(idx == k, table[k], out)
     return out
 
 
-# ---------------------------------------------------------------------------
-# Grouped mesh-table lookup with an MXU segment-sum transpose
-# ---------------------------------------------------------------------------
-# The transpose of table[idx] is a scatter-add; XLA serializes it per update
-# on TPU — the mesh SoA backward measured 1.4-1.7 s per 1080p x 8 frame,
-# ~10x its forward, almost all in the nine per-bounce vertex scatters.  The
-# same reduction as a ONE-HOT MATMUL rides the MXU: for each 1024-ray block,
-# onehot[t_rows, 1024] @ g[1024, C] accumulates every component's cotangent
-# at once (the classic bincount-as-matmul trick); the one-hot never touches
-# HBM.  Gated to tables <= _SEG_MM_MAX rows (the MXU work is N*t_rows*C).
-
-_SEG_MM_MAX = 4096
-_SEG_BLK = 1024
-# Ray blocks per lookup/segsum grid step.  MEASURED on-chip (round 5,
-# benchmarks/segsum_probe.py): batching 8 blocks per step does NOT speed
-# the standalone kernels (segsum 12.65 -> 11.48 ms at 1282 rows) and left
-# the full mesh fwd+bwd unchanged (222.9 -> 216.7 ms) — the cost is the
-# one-hot materialization ([tpad, 1024] f32 per block), not per-step
-# machinery.  Kept as a sweep lever; 1 = the proven default.
-_SEG_R = 1
-
-# Tables above _SEG_MM_MAX rows use the T-BLOCKED variants below: the table
-# rides VMEM whole, and each 1024-ray block only visits the 1024-row table
-# blocks its own [min(idx), max(idx)] range touches (BVH leaf order is
-# spatially coherent, so consecutive pixels hit clustered triangle ids and
-# most blocks skip most of the table).  Beyond _SEG_MM_BIG_MAX rows the
-# table no longer fits the VMEM budget and the plain gather remains.
-_SEG_MM_BIG_MAX = 131072
-_TBLK = 1024
-
-
-def _block_bounds(idx3, nblk):
-    """Per-1024-ray-block [lo, hi] table-block range, SMEM-shaped."""
-    i2 = idx3.reshape(nblk, _SEG_BLK)
-    lo = (jnp.min(i2, axis=1) // _TBLK).astype(jnp.int32)
-    hi = (jnp.max(i2, axis=1) // _TBLK).astype(jnp.int32)
-    return jnp.stack([lo, hi], axis=1).reshape(nblk, 1, 2)
-
-
-def _gather_mm_big(tables, idx):
-    """tuple(table[idx]) for big tables: per-ray-block fori_loop over the
-    touched 1024-row table blocks, each an MXU one-hot matmul.  Work is
-    N * T_touched * C instead of the full N * T * C."""
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    from .intersect import on_tpu
-
-    n = idx.shape[0]
-    c = len(tables)
-    t_rows = tables[0].shape[0]
-    step = _SEG_BLK * _SEG_R
-    npad = -(-n // step) * step
-    tpad = -(-t_rows // _TBLK) * _TBLK
-    tabT = jnp.stack([jnp.pad(t, (0, tpad - t_rows)) for t in tables])
-    if npad != n:
-        # Pad with the last REAL index (not 0): zero-padding would drag the
-        # trailing block's [lo, hi] range down to table block 0, defeating
-        # its range skipping (ADVICE r4; correctness unaffected either way
-        # -- padded lanes are cropped on return).
-        idx = jnp.concatenate([idx, jnp.full((npad - n,), idx[-1],
-                                             idx.dtype)])
-    nblk = npad // _SEG_BLK
-    idx3 = idx.reshape(nblk, 1, _SEG_BLK)
-    bounds = _block_bounds(idx3, nblk).reshape(nblk // _SEG_R, _SEG_R, 2)
-    idx3 = idx3.reshape(nblk // _SEG_R, _SEG_R, _SEG_BLK)
-
-    def kernel(b_ref, tab_ref, idx_ref, out_ref):
-        # _SEG_R ray blocks per step, each with its OWN [lo, hi] range so
-        # the per-block skipping is as tight as the 1-block grid.
-        for r in range(_SEG_R):
-            idxv = idx_ref[0, r:r + 1]                  # [1, BLK]
-
-            def body(j, acc):
-                rows = jax.lax.broadcasted_iota(
-                    jnp.int32, (_TBLK, _SEG_BLK), 0) + j * _TBLK
-                oh = (rows == idxv).astype(jnp.float32)  # [TBLK, BLK]
-                return acc + jnp.dot(
-                    tab_ref[:, pl.ds(j * _TBLK, _TBLK)], oh,
-                    preferred_element_type=jnp.float32)
-
-            acc0 = jnp.zeros((c, _SEG_BLK), jnp.float32)
-            out_ref[:, r * _SEG_BLK:(r + 1) * _SEG_BLK] = jax.lax.fori_loop(
-                b_ref[0, r, 0], b_ref[0, r, 1] + 1, body, acc0)
-
-    out = pl.pallas_call(
-        kernel,
-        grid=(nblk // _SEG_R,),
-        in_specs=[
-            pl.BlockSpec((1, _SEG_R, 2), lambda i: (i, 0, 0),
-                         memory_space=pltpu.SMEM),
-            pl.BlockSpec((c, tpad), lambda i: (0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, _SEG_R, _SEG_BLK), lambda i: (i, 0, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec((c, step), lambda i: (0, i),
-                               memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((c, npad), jnp.float32),
-        interpret=not on_tpu(),
-    )(bounds, tabT, idx3)
-    return tuple(out[k, :n] for k in range(c))
-
-
-def _segsum_mm_big(idx, gs, t_rows):
-    """Big-table twin of _segsum_mm: the [c, tpad] accumulator stays
-    resident in the revisited output block; each ray block only touches
-    its own table-block range via dynamic-slice accumulation."""
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    from .intersect import on_tpu
-
-    n = idx.shape[0]
-    c = len(gs)
-    step = _SEG_BLK * _SEG_R
-    npad = -(-n // step) * step
-    tpad = -(-t_rows // _TBLK) * _TBLK
-    g = jnp.stack(gs, axis=0)                           # [c, n]
-    if npad != n:
-        # Same trailing-block range-skipping fix as _gather_mm_big: padded
-        # lanes carry zero cotangent, so any in-range index is correct.
-        idx = jnp.concatenate([idx, jnp.full((npad - n,), idx[-1],
-                                             idx.dtype)])
-        g = jnp.concatenate(
-            [g, jnp.zeros((c, npad - n), g.dtype)], axis=1)
-    nblk = npad // _SEG_BLK
-    idx3 = idx.reshape(nblk, 1, _SEG_BLK)
-    g3 = jnp.moveaxis(g.reshape(c, nblk, _SEG_BLK), 1, 0)  # [nblk, c, BLK]
-    bounds = _block_bounds(idx3, nblk).reshape(nblk // _SEG_R, _SEG_R, 2)
-    idx3 = idx3.reshape(nblk // _SEG_R, _SEG_R, _SEG_BLK)
-    g3 = g3.reshape(nblk // _SEG_R, _SEG_R, c, _SEG_BLK)
-
-    def kernel(b_ref, idx_ref, g_ref, out_ref):
-        i = pl.program_id(0)
-
-        @pl.when(i == 0)
-        def _():
-            out_ref[...] = jnp.zeros((c, tpad), jnp.float32)
-
-        # _SEG_R ray blocks per step (per-block ranges preserved) — same
-        # fixed-cost amortization as _segsum_mm.
-        for r in range(_SEG_R):
-            idxv = idx_ref[0, r:r + 1]                  # [1, BLK]
-            gv = g_ref[0, r]                            # [c, BLK]
-
-            def body(j, _):
-                rows = jax.lax.broadcasted_iota(
-                    jnp.int32, (_TBLK, _SEG_BLK), 0) + j * _TBLK
-                oh = (rows == idxv).astype(jnp.float32)  # [TBLK, BLK]
-                contrib = jax.lax.dot_general(      # gv @ oh.T without the
-                    gv, oh, (((1,), (1,)), ((), ())),  # transpose
-                    preferred_element_type=jnp.float32)
-                sl = pl.ds(j * _TBLK, _TBLK)
-                out_ref[:, sl] = out_ref[:, sl] + contrib
-                return 0
-
-            jax.lax.fori_loop(b_ref[0, r, 0], b_ref[0, r, 1] + 1, body, 0)
-
-    out = pl.pallas_call(
-        kernel,
-        grid=(nblk // _SEG_R,),
-        in_specs=[
-            pl.BlockSpec((1, _SEG_R, 2), lambda i: (i, 0, 0),
-                         memory_space=pltpu.SMEM),
-            pl.BlockSpec((1, _SEG_R, _SEG_BLK), lambda i: (i, 0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, _SEG_R, c, _SEG_BLK), lambda i: (i, 0, 0, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec((c, tpad), lambda i: (0, 0),
-                               memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((c, tpad), jnp.float32),
-        interpret=not on_tpu(),
-    )(bounds, idx3, g3)
-    return out[:, :t_rows].T
-
-
-def _segsum_mm(idx, gs, t_rows):
-    """sum over rays of one-hot(idx) x gs -> f32[t_rows, C] via Pallas.
-
-    _SEG_R ray blocks ride each grid step (inner unrolled loop): at 2M
-    rays a 1-block step pays ~6 us of per-step machinery for a ~0.25 us
-    MXU dot — 2,048 steps measured 12.65 ms for a 1,288-row table where
-    the matmuls themselves are ~0.5 ms (round-5 replay probe).  Batching
-    8 blocks per step amortizes the fixed cost 8x."""
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    from .intersect import on_tpu
-
-    n = idx.shape[0]
-    c = len(gs)
-    step = _SEG_BLK * _SEG_R
-    npad = -(-n // step) * step
-    tpad = -(-t_rows // 8) * 8
-    g = jnp.stack(gs, axis=1)                       # [n, C]
-    if npad != n:
-        idx = jnp.concatenate(
-            [idx, jnp.zeros((npad - n,), idx.dtype)])
-        g = jnp.concatenate(
-            [g, jnp.zeros((npad - n, c), g.dtype)])  # zero rows: no effect
-    nstep = npad // step
-    idx3 = idx.reshape(nstep, _SEG_R, _SEG_BLK)
-    g3 = g.reshape(nstep, _SEG_R, _SEG_BLK, c)
-
-    def kernel(idx_ref, g_ref, out_ref, acc_ref):
-        i = pl.program_id(0)
-
-        @pl.when(i == 0)
-        def _():
-            acc_ref[...] = jnp.zeros((tpad, c), jnp.float32)
-
-        rows = jax.lax.broadcasted_iota(jnp.int32, (tpad, _SEG_BLK), 0)
-        acc = acc_ref[...]
-        for r in range(_SEG_R):
-            oh = (rows == idx_ref[0, r:r + 1]).astype(jnp.float32)
-            acc = acc + jnp.dot(oh, g_ref[0, r],
-                                preferred_element_type=jnp.float32)
-        acc_ref[...] = acc
-
-        @pl.when(i == pl.num_programs(0) - 1)
-        def _():
-            out_ref[...] = acc_ref[...]
-
-    out = pl.pallas_call(
-        kernel,
-        grid=(nstep,),
-        in_specs=[
-            pl.BlockSpec((1, _SEG_R, _SEG_BLK), lambda i: (i, 0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, _SEG_R, _SEG_BLK, c), lambda i: (i, 0, 0, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec((tpad, c), lambda i: (0, 0),
-                               memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((tpad, c), jnp.float32),
-        scratch_shapes=[pltpu.VMEM((tpad, c), jnp.float32)],
-        interpret=not on_tpu(),
-    )(idx3, g3)
-    return out[:t_rows]
-
-
-def _gather_mm(tables, idx):
-    """tuple(table[idx]) via an MXU one-hot matmul — the FORWARD twin of
-    _segsum_mm.  A gather fused into the bounce-scan fusion serializes per
-    ray (~18 ms per fusion at 1080p; 9 tables x 8 bounces ~= 1.3 s/frame
-    measured); out[C, BLK] = tablesT[C, T] @ onehot[T, BLK] is exact
-    (each column sums exactly one f32 entry) and runs in ~flops
-    N*T*C on the MXU."""
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    from .intersect import on_tpu
-
-    n = idx.shape[0]
-    c = len(tables)
-    t_rows = tables[0].shape[0]
-    step = _SEG_BLK * _SEG_R
-    npad = -(-n // step) * step
-    tpad = -(-t_rows // 8) * 8
-    tabT = jnp.stack([jnp.pad(t, (0, tpad - t_rows)) for t in tables])
-    if npad != n:
-        idx = jnp.concatenate([idx, jnp.zeros((npad - n,), idx.dtype)])
-    nstep = npad // step
-    idx3 = idx.reshape(nstep, _SEG_R, _SEG_BLK)
-
-    def kernel(tab_ref, idx_ref, out_ref):
-        # _SEG_R blocks per step — same fixed-cost amortization as
-        # _segsum_mm (the one-hot never exceeds [tpad, _SEG_BLK]).
-        rows = jax.lax.broadcasted_iota(jnp.int32, (tpad, _SEG_BLK), 0)
-        for r in range(_SEG_R):
-            oh = (rows == idx_ref[0, r:r + 1]).astype(jnp.float32)
-            out_ref[:, r * _SEG_BLK:(r + 1) * _SEG_BLK] = jnp.dot(
-                tab_ref[...], oh, preferred_element_type=jnp.float32)
-
-    out = pl.pallas_call(
-        kernel,
-        grid=(nstep,),
-        in_specs=[
-            pl.BlockSpec((c, tpad), lambda i: (0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, _SEG_R, _SEG_BLK), lambda i: (i, 0, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec((c, step), lambda i: (0, i),
-                               memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((c, npad), jnp.float32),
-        interpret=not on_tpu(),
-    )(tabT, idx3)
-    return tuple(out[k, :n] for k in range(c))
-
-
-def _gather_mm_huge(tables, idx):
-    """Beyond _SEG_MM_BIG_MAX rows the whole table no longer fits the VMEM
-    budget of _gather_mm_big; split it into VMEM-sized row chunks and sum
-    the per-chunk lookups (out-of-chunk lanes masked to zero).  Clipped
-    out-of-chunk indices collapse each foreign ray block's [lo, hi] range
-    to one table block, so the extra passes cost ~one matmul per ray block
-    per chunk — the guardrail for 260k+-triangle meshes (VERDICT r4 item
-    7), replacing the former silent serialized-gather fallback."""
-    t_rows = tables[0].shape[0]
-    out = None
-    for base in range(0, t_rows, _SEG_MM_BIG_MAX):
-        hi = min(base + _SEG_MM_BIG_MAX, t_rows)
-        sub = tuple(t[base:hi] for t in tables)
-        in_chunk = (idx >= base) & (idx < hi)
-        idx_c = jnp.clip(idx - base, 0, hi - base - 1)
-        oc = _gather_mm_big(sub, idx_c)
-        oc = tuple(jnp.where(in_chunk, o, 0.0) for o in oc)
-        out = oc if out is None else tuple(
-            a + o for a, o in zip(out, oc))
-    return out
-
-
-def _segsum_mm_huge(idx, gs, t_rows):
-    """Chunked twin of _gather_mm_huge for the backward segment-sum:
-    per chunk, zero the cotangent of out-of-chunk lanes (their clipped
-    index then accumulates exactly zero) and concatenate the per-chunk
-    gradient rows."""
-    outs = []
-    for base in range(0, t_rows, _SEG_MM_BIG_MAX):
-        hi = min(base + _SEG_MM_BIG_MAX, t_rows)
-        in_chunk = (idx >= base) & (idx < hi)
-        idx_c = jnp.clip(idx - base, 0, hi - base - 1)
-        gz = tuple(jnp.where(in_chunk, g, 0.0) for g in gs)
-        outs.append(_segsum_mm_big(idx_c, gz, hi - base))
-    return outs[0] if len(outs) == 1 else jnp.concatenate(outs, axis=0)
-
-
-@partial(jax.custom_vjp, nondiff_argnums=(2,))
-def _lookup_group_mm(tables, idx, n_diff):
-    if tables[0].shape[0] > _SEG_MM_BIG_MAX:
-        return _gather_mm_huge(tables, idx)
-    if tables[0].shape[0] > _SEG_MM_MAX:
-        return _gather_mm_big(tables, idx)
-    return _gather_mm(tables, idx)
-
-
-def _lookup_group_mm_fwd(tables, idx, n_diff):
-    return _lookup_group_mm(tables, idx, n_diff), (idx,
-                                                   tables[0].shape[0])
-
-
-def _lookup_group_mm_bwd(n_diff, res, gs):
-    idx, t_rows = res
-    if t_rows > _SEG_MM_BIG_MAX:
-        seg = _segsum_mm_huge
-    elif t_rows > _SEG_MM_MAX:
-        seg = _segsum_mm_big
-    else:
-        seg = _segsum_mm
-    # Channels at/after n_diff are statically known zero-cotangent (e.g.
-    # tri_mat rides the grouped lookup behind a stop_gradient) — skip
-    # their segment-sum columns entirely (ADVICE r4 item 3) and return
-    # zeros for them.
-    grads = seg(idx, tuple(gs[:n_diff]), t_rows)
-    zero = jnp.zeros((t_rows,), jnp.float32)
-    return (tuple(grads[:, k] for k in range(n_diff))
-            + (zero,) * (len(gs) - n_diff), None)
-
-
-_lookup_group_mm.defvjp(_lookup_group_mm_fwd, _lookup_group_mm_bwd)
-
-
-def _lookup_group(tables, idx, n_diff=None):
-    """Shared-index lookup across several same-length [T] tables; the
-    cotangent of all of them comes back from ONE MXU segment-sum
-    (_segsum_mm) instead of per-table scatter-adds.  idx must be
-    pre-clipped to [0, T).  ``n_diff``: number of LEADING channels that
-    are differentiated; trailing channels skip the backward segsum."""
-    t = tables[0].shape[0]
-    if t <= _LOOKUP_UNROLL:
-        return tuple(_lookup(tab, idx) for tab in tables)
-    return _lookup_group_mm(tuple(tables), idx,
-                            len(tables) if n_diff is None else n_diff)
+def _lookup_group(tables, idx):
+    """Shared-index lookup across several same-length [T] tables;
+    ``idx`` must be pre-clipped to [0, T)."""
+    return tuple(_lookup(tab, idx) for tab in tables)
 
 
 def kajiya_replay_soa(scene, origin, direction, pixel, frame, salt_base,
@@ -493,18 +107,8 @@ def kajiya_replay_soa(scene, origin, direction, pixel, frame, salt_base,
         if has_tri:
             m = fam == 0
             safe = jnp.clip(idx, 0, scene.num_triangles - 1)
-            tri_tabs = tuple(t_v0) + tuple(t_v1) + tuple(t_v2)
-            group_mat = _LOOKUP_UNROLL < scene.num_triangles
-            if group_mat:
-                # Ride tri_mat through the same one-hot matmul (exact for
-                # int values) instead of a separate big-table gather; its
-                # statically-zero cotangent column skips the backward
-                # segsum via n_diff (ADVICE r4 item 3).  The chunked
-                # _gather_mm_huge covers >_SEG_MM_BIG_MAX rows too.
-                tri_tabs = tri_tabs + (tri_mat.astype(jnp.float32),)
-            looked = _lookup_group(tri_tabs, safe,
-                                   n_diff=9 if group_mat else None)
-            (v0x, v0y, v0z, v1x, v1y, v1z, v2x, v2y, v2z) = looked[:9]
+            (v0x, v0y, v0z, v1x, v1y, v1z, v2x, v2y, v2z) = _lookup_group(
+                tuple(t_v0) + tuple(t_v1) + tuple(t_v2), safe)
             e0x, e0y, e0z = v1x - v0x, v1y - v0y, v1z - v0z
             e1x, e1y, e1z = v2x - v0x, v2y - v0y, v2z - v0z
             nx = e0y * e1z - e0z * e1y
@@ -518,10 +122,7 @@ def kajiya_replay_soa(scene, origin, direction, pixel, frame, salt_base,
             wnx = jnp.where(m, nx, wnx)
             wny = jnp.where(m, ny, wny)
             wnz = jnp.where(m, nz, wnz)
-            tri_mid = (
-                jax.lax.stop_gradient(looked[9]).astype(jnp.int32)
-                if group_mat else _lookup(tri_mat, safe))
-            mat_id = jnp.where(m, tri_mid, mat_id)
+            mat_id = jnp.where(m, _lookup(tri_mat, safe), mat_id)
 
         if has_sph:
             m = fam == 1

@@ -1,6 +1,6 @@
 """BVH traversal, vectorized over ray batches.
 
-TPU re-design of the reference's per-thread stack walk
+Vectorized re-design of the reference's per-thread stack walk
 (assets/shaders/intersection.glsl:361-463): every ray keeps its own 64-entry
 stack in a ``[N, 64]`` array and all rays advance in lockstep inside one
 ``lax.while_loop`` — lanes that finish early idle behind a mask until the
@@ -12,9 +12,8 @@ All node ids / stack entries are int32 with sentinel -1 (the reference uses
 u32 with ~0, intersection.glsl:371; int32 avoids cross-backend unsigned
 promotion hazards).
 
-This path exists for *correctness parity* and large scenes; for small/medium
-scenes the matmul-shaped brute force (ops.intersect) is usually faster on TPU
-because it has zero divergence.  ``closest_hit_bvh`` matches
+This is the CPU search route for BVH scenes (ops.route); on the GPU it has
+not been measured yet.  ``closest_hit_bvh`` matches
 ``closest_hit_triangles`` results exactly (tested on random scenes).
 """
 
@@ -26,7 +25,10 @@ import jax.numpy as jnp
 from .intersect import INF, _safe_div, triangle_isect_single
 
 STACK_DEPTH = 64  # reference: intersection.glsl:363
-SENTINEL = jnp.int32(-1)  # bottom-of-stack marker (reference uses ~0)
+# Bottom-of-stack marker (reference uses ~0).  A Python int: a jax Array
+# constant captured in the while_loop body broke a later, different jitted
+# program in the same process (see ops.intersect.INF).
+SENTINEL = -1
 
 
 def closest_hit_bvh(scene, bvh, origin, direction, mint, maxt):

@@ -1,14 +1,15 @@
 """Multi-host initialization & film gather.
 
 The reference is a single process (SURVEY.md §2 parallelism checklist: no
-distributed backend).  For multi-host TPU slices: call
-:func:`initialize_distributed` once per process before device use
-(`jax.distributed.initialize` wires the PJRT coordination service over DCN),
+distributed backend).  For several processes — one per GPU, each pinned to
+its own card — call :func:`initialize_distributed` once per process before
+device use with the coordinator address, process count and rank (nothing
+on a plain GPU host announces a cluster, so all three are required there),
 build a global mesh with `parallel.mesh.make_mesh` (jax.devices() is then the
-global device list), and render with `parallel.sharded`.  Cross-chip traffic
-stays on ICI (the film is tile-sharded, the scene replicated); DCN only
-carries the coordination handshake and, in training, the psum'd scene-
-parameter gradients across hosts.
+global device list), and render with `parallel.sharded`.  Tracing needs no
+cross-card traffic (the film is tile-sharded, the scene replicated); the
+network carries the coordination handshake and, in training, the psum'd
+scene-parameter gradients.
 """
 
 from __future__ import annotations
@@ -21,8 +22,10 @@ import numpy as np
 def initialize_distributed(coordinator: str | None = None,
                            num_processes: int | None = None,
                            process_id: int | None = None) -> None:
-    """Wrapper over jax.distributed.initialize; arguments come from the
-    launcher environment when omitted (TPU pods auto-detect)."""
+    """Wrapper over jax.distributed.initialize; arguments left out come from
+    a cluster launcher's environment, if any.  To pin one process per card,
+    call jax.distributed.initialize with ``local_device_ids=[rank]``
+    (examples/multihost_render.py --pin-device)."""
     kwargs = {}
     if coordinator is not None:
         kwargs["coordinator_address"] = coordinator

@@ -2,7 +2,7 @@
 
 The reference is strictly single-GPU (one vkCmdDispatch per frame,
 src/rvpt/rvpt.cpp:1035-1036; SURVEY.md §2 parallelism checklist).  The
-TPU-native scale-out story: shard film *tiles* across chips (data parallel —
+scale-out story: shard film *tiles* across cards (data parallel —
 zero cross-chip traffic during tracing since the scene is replicated), and
 optionally shard samples-per-pixel with a psum-mean (the Monte-Carlo analog of
 sequence/context parallelism: the long axis is rays x bounces, SURVEY.md §5).
@@ -21,7 +21,10 @@ SPP_AXIS = "spp"  # sample-parallel Monte-Carlo axis
 
 
 def make_mesh(n_tiles: int | None = None, n_spp: int = 1, devices=None) -> Mesh:
-    """(tiles, spp) mesh.  Defaults to all devices on the tile axis."""
+    """(tiles, spp) mesh.  Defaults to all devices on the tile axis.
+
+    The shape follows the algorithm alone: every card reaches every other at
+    the same rate (NVLink, all to all), so no device order is preferred."""
     devices = list(devices if devices is not None else jax.devices())
     if n_tiles is None:
         n_tiles = len(devices) // n_spp

@@ -6,7 +6,7 @@ Design (SURVEY.md §5 "distributed communication backend"):
     materials are replicated on every chip (they are tiny; the reference
     re-uploads them per frame, src/rvpt/rvpt.cpp:124-126).
   * The ``spp`` axis shards Monte-Carlo samples of the *same* pixels; ranks
-    render decorrelated sample sets and a ``pmean`` over ICI combines them —
+    render decorrelated sample sets and a ``pmean`` combines them —
     the path-tracing analog of sequence parallelism.
   * Gradients of replicated scene parameters are all-reduced automatically:
     shard_map's transpose inserts a psum for replicated inputs, so
@@ -82,167 +82,22 @@ def render_sample_sharded(scene, camera, settings: RenderSettings,
     return sampled[:, :n].reshape(3, cfg.height, cfg.width)
 
 
-def _sharded_pixels_mode(scene, camera, settings: RenderSettings,
-                         cfg: FilmConfig, frame, mesh, pixel, mode,
-                         interpret):
-    """Shard an arbitrary pixel batch over the mesh and run ONE
-    kernel-resident integrator per shard -> f32[3, n].
-
-    Every mode rides the same kernels the single-chip display path uses
-    (render.py _trace_mode_kernel / _trace_mode_bigmesh): film pixels
-    data-parallel over ``tiles``, decorrelated sample sets over ``spp``
-    pmean'd across ICI, scene/camera replicated.  RNG is keyed by global
-    pixel id and traced salt counters, so for a 1-wide spp axis the sharded
-    image is bit-identical to the single-device fast path (tested); spp
-    ranks reproduce the XLA path's aa_offset salt layout."""
-    from ..models.integrators import AA_STRIDE
-    from ..ops.pathkernel import PathTracer, camera_params, is_bigmesh
-    from ..render import _trace_mode_bigmesh, _trace_mode_kernel
-
-    n_tiles = mesh.shape[TILE_AXIS]
-    n_spp = mesh.shape[SPP_AXIS]
-    bigmesh = is_bigmesh(scene)
-    n = pixel.shape[0]
-    pad = (-n) % n_tiles
-    if pad:
-        pixel = jnp.concatenate([pixel, pixel[:pad]])
-    cp = camera_params(camera, cfg)
-
-    @partial(
-        jax.shard_map,
-        mesh=mesh,
-        in_specs=(P(TILE_AXIS), P(), P(), P()),
-        out_specs=P(None, TILE_AXIS),
-        check_vma=False,
-    )
-    def tile_render(pixel, scene, cp, frame):
-        from ..ops.pathkernel import BigMeshTracer
-
-        rank = jax.lax.axis_index(SPP_AXIS).astype(jnp.uint32)
-        pt = BigMeshTracer(scene) if bigmesh else PathTracer(scene)
-        acc_r = acc_g = acc_b = 0.0
-        for i in range(settings.aa):
-            salt0 = (jnp.uint32(i) + rank * jnp.uint32(settings.aa)) \
-                * jnp.uint32(AA_STRIDE)
-            if bigmesh:
-                # The chunked kernels have no in-kernel raygen; rays are
-                # generated in XLA with the display path's exact salts.
-                xs = pixel % jnp.uint32(cfg.width)
-                ys = pixel // jnp.uint32(cfg.width)
-                r, g, b = _trace_mode_bigmesh(
-                    pt, camera, settings, cfg, pixel, xs, ys, frame,
-                    salt0, mode, interpret)
-            else:
-                r, g, b = _trace_mode_kernel(
-                    pt, scene, camera, settings, cfg, cp, pixel, frame,
-                    salt0, mode, interpret=interpret)
-            acc_r = acc_r + r
-            acc_g = acc_g + g
-            acc_b = acc_b + b
-        inv = 1.0 / settings.aa
-        sampled = jnp.stack([acc_r * inv, acc_g * inv, acc_b * inv])
-        if n_spp > 1:
-            sampled = jax.lax.pmean(sampled, SPP_AXIS)
-        return sampled
-
-    return tile_render(pixel, scene, cp, frame)[:, :n]
-
-
-def render_sample_sharded_fast(scene, camera, settings: RenderSettings,
-                               cfg: FilmConfig, frame, mesh,
-                               interpret: bool = False):
-    """Path-kernel-backed sharded sample render -> f32[3,H,W].
-
-    Any integrator mode and 4-way split-screen, at any scene size — each
-    quadrant's pixels are sharded over the whole mesh in turn and the
-    quadrant rectangles reassembled with static slice updates, mirroring
-    the single-chip fast path (render.py _fast_chw_jit; reference
-    compute_pass.comp:134-144)."""
-    from ..render import _rect_pixels, _split_partition
-    frame = jnp.asarray(frame, jnp.uint32)
-    modes = set(settings.modes())
-
-    if len(modes) > 1:
-        parts = _split_partition(cfg, settings)
-        out = jnp.zeros((3, cfg.height, cfg.width), jnp.float32)
-        for m, (y0, y1, x0, x1) in parts:
-            vals = _sharded_pixels_mode(
-                scene, camera, settings, cfg, frame, mesh,
-                _rect_pixels(y0, y1, x0, x1, cfg.width), m, interpret)
-            rect = vals.reshape(3, y1 - y0, x1 - x0)
-            out = jax.lax.dynamic_update_slice(out, rect, (0, y0, x0))
-        return out
-
-    (mode,) = modes
-    pixel, _, _ = _pixel_grid(cfg)
-    inv_ord = block_meta = None
-    if scene.bvh is not None and scene.num_triangles > 0:
-        # Mesh scenes (culled or chunked): arrange pixels into compact
-        # screen blocks BEFORE sharding, so each shard's kernel tiles stay
-        # frustum-tight (raw raster order would hand every tile a ~4-row
-        # film strip).  Prefer the gather-free padded block layout.
-        from ..ops.pathkernel import (bigmesh_block_dims, culled_block_dims,
-                                      is_bigmesh)
-        from ..render import _block_grid, _block_order
-        bw, bh = (bigmesh_block_dims() if is_bigmesh(scene)
-                  else culled_block_dims())
-        grid = _block_grid(cfg.width, cfg.height, bw, bh)
-        if grid is not None:
-            pixel_np, block_meta = grid
-            pixel = jnp.asarray(pixel_np)
-        else:
-            order, inv_ord = _block_order(cfg.width, cfg.height, bw=bw,
-                                          bh=bh)
-            pixel = pixel[order]
-
-    out = _sharded_pixels_mode(
-        scene, camera, settings, cfg, frame, mesh, pixel, mode, interpret)
-    if block_meta is not None:
-        from ..render import _unblock
-        return jnp.stack(
-            [_unblock(out[k], cfg.width, cfg.height, block_meta)
-             for k in range(3)])
-    if inv_ord is not None:
-        out = out[:, inv_ord]
-    return out.reshape(3, cfg.height, cfg.width)
-
-
-def _sharded_fast_eligible(scene, settings: RenderSettings) -> bool:
-    """The sharded steady-state loop rides the fused path kernels whenever
-    the single-device display path would (render.py _megakernel_eligible) —
-    every integrator mode and split-screen included, at any scene size."""
-    from ..render import _megakernel_eligible
-
-    return _megakernel_eligible(scene, settings)
-
-
-def render_frame_sharded(scene, camera, settings, cfg, film, dirty, mesh,
-                         interpret: bool = False):
+def render_frame_sharded(scene, camera, settings, cfg, film, dirty, mesh):
     """Sharded sample + EMA accumulate (film itself stays row-sharded if the
-    caller placed it so; the update is elementwise).
-
-    Kernel-eligible frames (Kajiya beauty render, including culled and
-    chunked big-mesh scenes) run the fused Pallas path kernel per shard via
-    render_sample_sharded_fast — the same kernels the single-chip display
-    path uses (reference steady loop: rvpt.cpp:346-404); everything else
-    falls back to the XLA integrators."""
+    caller placed it so; the update is elementwise) — the reference's steady
+    loop (rvpt.cpp:346-404) over the mesh."""
     frame = jnp.where(jnp.asarray(dirty), jnp.uint32(0), film.frame)
-    if _sharded_fast_eligible(scene, settings):
-        sample = render_sample_sharded_fast(
-            scene, camera, settings, cfg, frame, mesh, interpret=interpret)
-    else:
-        sample = render_sample_sharded(scene, camera, settings, cfg, frame,
-                                       mesh)
+    sample = render_sample_sharded(scene, camera, settings, cfg, frame, mesh)
     new_film = film_ops.accumulate(film, sample, dirty)
     return new_film, new_film.accum
 
 
-def make_render_fn(scene, camera, settings, cfg, mesh, interpret: bool = False):
+def make_render_fn(scene, camera, settings, cfg, mesh):
     """Jitted closure for the steady-state sharded frame loop."""
 
     @partial(jax.jit, donate_argnames=("film",))
     def step(scene, camera, film, dirty):
         return render_frame_sharded(scene, camera, settings, cfg, film,
-                                    dirty, mesh, interpret=interpret)
+                                    dirty, mesh)
 
     return step

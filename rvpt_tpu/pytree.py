@@ -2,7 +2,7 @@
 
 The reference framework passes scene/camera/settings state to its device kernel
 through Vulkan descriptor bindings (reference: src/rvpt/rvpt.cpp:646-655).  The
-TPU-native equivalent is a pytree: every struct that crosses the host->device
+equivalent here is a pytree: every struct that crosses the host->device
 boundary here is a registered dataclass whose array leaves flow through
 ``jax.jit``/``jax.grad`` and whose static fields participate in the jit cache
 key.

@@ -73,8 +73,8 @@ def mesh_demo(
     subdiv: int = 4, aspect: float = 1.0
 ) -> tuple[Scene, Camera]:
     """Config 4 workload: a dense icosphere (20*4^subdiv triangles) on a
-    floor plane under an area light, BVH-attached so the fused kernel uses
-    its SMEM cluster-culled mesh path (ops.pathkernel.pack_cull)."""
+    floor plane under an area light, BVH-attached (the CPU search route
+    traverses it; ops.route)."""
     from .bvh import attach_bvh
     from .obj_io import make_icosphere
 
@@ -97,8 +97,7 @@ def mesh_demo(
 
 def terrain_demo(n: int = 225, aspect: float = 1.0) -> tuple[Scene, Camera]:
     """>=100k-triangle workload (n=225 -> 100,352 tris): a sinusoidal
-    heightfield under an area light, BVH-attached, served by the chunked
-    big-mesh kernel (ops.pathkernel.BigMeshTracer)."""
+    heightfield under an area light, BVH-attached."""
     from .bvh import attach_bvh
     from .obj_io import make_terrain
 
@@ -124,9 +123,9 @@ def rabbit(aspect: float = 2.0, use_bvh: bool = True) -> tuple["Scene", Camera]:
     """THE reference demo scene (src/rvpt/main.cpp:96-107): models/rabbit.obj
     (76 verts / 143 tris) as material 1, with material 0 = Lambert(1,1,1) +
     emission(0.1,0.4,0.6) and material 1 = plain white Lambert, on the
-    reference's fixed 1024x512 film (aspect 2).  BVH-attached by default so
-    the fused kernel's culled mesh path serves it, like the reference's GPU
-    BVH traversal (assets/shaders/intersection.glsl:361-413)."""
+    reference's fixed 1024x512 film (aspect 2).  BVH-attached by default,
+    like the reference's GPU BVH traversal
+    (assets/shaders/intersection.glsl:361-413)."""
     from ..config import get_asset_path
     from .bvh import attach_bvh
     from .obj_io import load_obj

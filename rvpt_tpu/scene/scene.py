@@ -2,7 +2,7 @@
 
 The reference's scene is `std::vector<Triangle>` + `std::vector<Material>`
 mem-copied into SSBOs every frame (src/rvpt/rvpt.cpp:118-126,1041-1043).  The
-TPU-native scene is an immutable pytree of arrays that lives on device and is
+scene here is an immutable pytree of arrays that lives on device and is
 donated/reused across jit steps.  Analytic spheres and planes are first-class
 primitive families alongside triangles (the reference keeps sphere/plane
 intersectors in GLSL but only wires triangles into the scene —

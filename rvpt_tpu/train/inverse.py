@@ -9,7 +9,7 @@ counterpart (its closest state is the temporal accumulation buffer).
 Parameter groups (``PARAM_GROUPS``) select which leaves train: materials
 (albedo/emission/ior), geometry (triangle vertices, sphere center/radius,
 plane normal/offset) and camera pose (translation/rotation) — every leaf the
-custom-VJP path kernel already returns cotangents for (ops.fast_grad.bwd,
+hit-record gradient returns cotangents for (ops.fast_grad,
 tests/test_fast_grad.py, tests/test_camera_grad.py).
 """
 
@@ -107,27 +107,26 @@ def constrain_params(params: dict) -> dict:
     return out
 
 
-def _make_fast_render(scene_tpl, camera_tpl, settings, cfg, mesh, interpret):
-    """Image-valued render closure backed by the custom-VJP path kernel
-    (ops.fast_grad): forward = fused whole-path kernel, backward = fused
-    Pallas pullback.  With a mesh, runs per-shard inside shard_map — the
-    shard_map transpose psums the replicated scene cotangent across chips.
+def _make_fast_render(scene_tpl, settings, cfg, mesh):
+    """Image-valued render closure backed by the hit-record gradient
+    (ops.fast_grad): forward = XLA Kajiya chain recording its hits,
+    backward = reverse-mode AD of the replay from those hits.  With a mesh,
+    runs per-shard inside shard_map — the shard_map transpose psums the
+    replicated scene cotangent across cards.
 
     Returns ``render_fast(scene, camera, frame) -> f32[3, H, W]``; aa > 1
-    averages per-sample kernel traces with the display path's AA_STRIDE
-    salt layout, so the gradient is the mean of per-sample VJPs."""
-    import jax
+    averages per-sample traces with the display path's AA_STRIDE salt
+    layout and jitter (render.jittered_camera_rays), so the gradient is the
+    mean of per-sample VJPs."""
     from jax.sharding import PartitionSpec as P
 
-    from ..core import rng as rng_mod
-    from ..models import camera as camera_mod
     from ..models.integrators import AA_STRIDE
     from ..ops.fast_grad import make_fast_kajiya
-    from ..render import _INTEGRATOR_SITE, _JITTER_SITE, _pixel_grid
+    from ..render import _INTEGRATOR_SITE, _pixel_grid, jittered_camera_rays
 
     trace = make_fast_kajiya(
         scene_tpl, _INTEGRATOR_SITE, settings.max_bounces,
-        style=settings.style, interpret=interpret,
+        style=settings.style,
     )
     aa = settings.aa
 
@@ -135,11 +134,7 @@ def _make_fast_render(scene_tpl, camera_tpl, settings, cfg, mesh, interpret):
         acc = 0.0
         for i in range(aa):
             salt_i = salt_off + jnp.uint32(i * AA_STRIDE)
-            ju, jv = rng_mod.uniform2(
-                pixel, frame, salt_i + jnp.uint32(_JITTER_SITE))
-            cx = (xs.astype(jnp.float32) + ju) / cfg.width
-            cy = 1.0 - (ys.astype(jnp.float32) + jv) / cfg.height
-            ray = camera_mod.generate_rays(cam, cx, cy)
+            ray = jittered_camera_rays(cam, cfg, pixel, xs, ys, frame, salt_i)
             acc = acc + trace(s, ray.origin, ray.direction, pixel, frame,
                               salt=salt_i)
         return acc.T / aa  # [3, n]
@@ -188,10 +183,10 @@ def _make_fast_render(scene_tpl, camera_tpl, settings, cfg, mesh, interpret):
     return render_fast
 
 
-def _fast_eligible(scene, settings: RenderSettings) -> bool:
-    from ..render import _megakernel_eligible
-
-    return _megakernel_eligible(scene, settings)
+def _fast_eligible(settings: RenderSettings) -> bool:
+    """The hit-record gradient serves Kajiya-only settings (every split
+    quadrant mode 9), on every platform and scene."""
+    return set(settings.modes()) == {9}
 
 
 def accumulate_frames(render, cfg: FilmConfig, params, frame0, k):
@@ -231,10 +226,9 @@ def make_train_step(scene, camera, settings: RenderSettings, cfg: FilmConfig,
     ``groups`` selects the trainable leaves (PARAM_GROUPS keys); the camera
     group optimizes pose through ray generation (models/camera.py).
 
-    ``fast``: "auto" uses the custom-VJP path-kernel renderer when the scene/
-    settings fit it and the backend runs Pallas; True forces it (compiled),
-    "interpret" forces it with interpreted kernels (CPU tests); False uses
-    the XLA integrator path.
+    ``fast``: "auto" uses the hit-record gradient (ops.fast_grad) for
+    Kajiya-only settings and XLA autodiff of the integrators otherwise;
+    True forces the hit-record gradient, False forces autodiff.
 
     ``accum_frames`` > 1 targets the EMA-ACCUMULATED film after that many
     frames (accumulate_frames): the loss sees the k-frame temporal mean and
@@ -244,13 +238,9 @@ def make_train_step(scene, camera, settings: RenderSettings, cfg: FilmConfig,
     opt = optax.adam(learning_rate)
     opt_state = opt.init(trainable_params(scene, groups, camera))
 
-    use_fast = (
-        _fast_eligible(scene, settings) if fast == "auto" else bool(fast)
-    )
+    use_fast = _fast_eligible(settings) if fast == "auto" else bool(fast)
     if use_fast:
-        render_fast = _make_fast_render(
-            scene, camera, settings, cfg, mesh, interpret=fast == "interpret"
-        )
+        render_fast = _make_fast_render(scene, settings, cfg, mesh)
 
     def render(p, frame):
         s = apply_params(scene, p)

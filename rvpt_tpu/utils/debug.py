@@ -3,7 +3,7 @@
 The reference's equivalents are Vulkan validation layers + ASan in debug
 builds (SURVEY.md §5 "race detection / sanitizers"); under XLA the runtime
 owns ordering, so what remains useful is numeric validation: NaN/Inf checks
-and the Pallas interpreter.
+and op-by-op execution.
 """
 
 from __future__ import annotations
@@ -27,13 +27,3 @@ def validation(nan_checks: bool = True, disable_jit: bool = False):
     finally:
         jax.config.update("jax_debug_nans", old_nan)
         jax.config.update("jax_disable_jit", old_jit)
-
-
-@contextlib.contextmanager
-def interpret_kernels():
-    """Run all Pallas kernels in the interpreter (the 'software rasterizer'
-    debugging fallback)."""
-    from jax.experimental.pallas import tpu as pltpu
-
-    with pltpu.force_tpu_interpret_mode():
-        yield

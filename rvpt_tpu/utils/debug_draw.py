@@ -3,7 +3,7 @@
 The reference's debug raster pipelines draw the scene triangles as
 wireframe/opaque overlays and the BVH as per-depth AABB line lists on the GPU
 (src/rvpt/rvpt.cpp:128-236, 966-994, assets/shaders/debug_vis.*).  Headless
-TPU rendering replaces them with a CPU line rasterizer over the same data:
+rendering replaces them with a CPU line rasterizer over the same data:
 project with the camera, Bresenham the edges into the rendered frame
 (SURVEY.md §1 L6 mapping).
 """

@@ -2,7 +2,7 @@
 
 The reference's shader hot reload shells out to glslangValidator and rebuilds
 every pipeline while handles stay valid through an index indirection
-(src/rvpt/rvpt.cpp:444-468, vk_util.cpp:799-813).  The TPU-native equivalent:
+(src/rvpt/rvpt.cpp:444-468, vk_util.cpp:799-813).  The equivalent here:
 watch Python source files, re-import the changed modules, and drop the jit
 cache — function *names* are the stable handles, re-resolved per frame by the
 Renderer exactly like PipelineBuilder.get_pipeline resolves indices.

@@ -1,7 +1,7 @@
 """Dependency-free PNG I/O.
 
 The reference presents frames through a Vulkan swapchain blit
-(src/rvpt/rvpt.cpp:956-964); headless TPU rendering instead writes PNGs (and
+(src/rvpt/rvpt.cpp:956-964); headless rendering instead writes PNGs (and
 the viewer/debug overlays become saved buffers, SURVEY.md §1 L6).
 """
 

@@ -3,7 +3,7 @@
 The reference's only profiling surface is a host frame timer with a 50-frame
 rolling window shown in ImGui (src/rvpt/timer.cpp:35-40, rvpt.cpp:264-269)
 plus debug-utils object names for external profilers (vk_util.h:31-64).  The
-TPU-native equivalents are ``jax.profiler`` device traces (viewable in
+equivalents here are ``jax.profiler`` device traces (viewable in
 TensorBoard/XProf — the RenderDoc analog) and named trace annotations around
 host-side phases.
 """
@@ -11,6 +11,7 @@ host-side phases.
 from __future__ import annotations
 
 import contextlib
+import subprocess
 import time
 from dataclasses import dataclass, field
 
@@ -34,6 +35,22 @@ def device_trace(log_dir: str):
         yield
     finally:
         jax.profiler.stop_trace()
+
+
+def gpu_card() -> str | None:
+    """The card's name and power limit as ``nvidia-smi --query-gpu=name,
+    power.limit --format=csv,noheader`` prints them (one line per card), or
+    None where nvidia-smi is absent or fails.  Runs in a child process that
+    never touches JAX; a card below its top power limit runs slower under
+    load, so every number taken on the card is reported beside this."""
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=60, check=True)
+    except (OSError, subprocess.SubprocessError):
+        return None
+    return out.stdout.strip() or None
 
 
 def annotate(name: str):

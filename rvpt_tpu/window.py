@@ -3,7 +3,7 @@
 The reference wraps GLFW in a ``Window`` class with an edge-triggered
 key-state machine, mouse-look with a cursor lock, and an FPS-style camera
 controller in the app loop (src/rvpt/window.h:14-227, window.cpp:10-269,
-main.cpp:64-86,110-155).  A TPU renderer is headless, so this module splits
+main.cpp:64-86,110-155).  The renderer is headless, so this module splits
 that design into:
 
 * ``InputState`` — the exact key/mouse state machine, backend-agnostic:

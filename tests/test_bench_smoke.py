@@ -1,11 +1,9 @@
-"""Smoke-trace every code path bench.py exercises, on CPU (interpret mode).
+"""Smoke-trace every code path bench.py exercises, on the CPU.
 
-Round 2 shipped a bench.py that crashed at trace time while the tests and
-the multichip artifact stayed green.  These tests hit the same library
-entry points bench.py uses — fast-grad fwd+bwd, megakernel display,
-culled-mesh display, chunked big-mesh display, and the sharded harness —
-at tiny film sizes with the kernel backend forced, so a bench-breaking
-regression fails the suite instead of shipping."""
+A bench.py that crashes at trace time must fail the suite, not ship.  These
+tests hit the same library entry points bench.py uses — hit-record fwd+bwd,
+display frames on Cornell and a BVH mesh, and the sharded harness — at tiny
+film sizes."""
 
 import json
 
@@ -18,14 +16,7 @@ from rvpt_tpu import FilmConfig, RenderSettings
 from rvpt_tpu.scene import builtin
 
 
-@pytest.fixture
-def kernel_backend(monkeypatch):
-    from rvpt_tpu.ops import intersect as im
-
-    monkeypatch.setattr(im, "_BACKEND", "pallas")
-
-
-def test_bench_fwd_bwd_path(kernel_backend):
+def test_bench_fwd_bwd_path():
     """bench.py main() headline: fast-VJP Kajiya gradient step."""
     from rvpt_tpu.core import rng
     from rvpt_tpu.models import camera as camera_mod
@@ -40,7 +31,7 @@ def test_bench_fwd_bwd_path(kernel_backend):
     cx = (xs.astype(jnp.float32) + ju) / cfg.width
     cy = 1.0 - (ys.astype(jnp.float32) + jv) / cfg.height
     ray = camera_mod.generate_rays(camera, cx, cy)
-    trace = make_fast_kajiya(scene, 16, 2, style="standard", interpret=True)
+    trace = make_fast_kajiya(scene, 16, 2, style="standard")
 
     def loss_fn(params, frame):
         s = apply_params(scene, params)
@@ -54,41 +45,19 @@ def test_bench_fwd_bwd_path(kernel_backend):
         assert np.isfinite(np.asarray(g)).all()
 
 
-def test_bench_display_paths(kernel_backend):
-    """bench.py supplementary rows: megakernel Cornell + culled mesh."""
-    from rvpt_tpu.render import render_sample_fast_chw
+def test_bench_display_paths():
+    """bench.py display rows: Cornell + BVH mesh."""
+    from rvpt_tpu.render import render_sample_chw
 
     cfg = FilmConfig(width=32, height=16)
     st = RenderSettings(max_bounces=2, aa=1, style="standard")
     scene, camera = builtin.cornell_box(aspect=cfg.aspect)
-    img = np.asarray(render_sample_fast_chw(scene, camera, st, cfg, 0))
+    img = np.asarray(render_sample_chw(scene, camera, st, cfg, 0))
     assert img.shape == (3, 16, 32) and np.isfinite(img).all()
 
     mesh_scene, mesh_cam = builtin.mesh_demo(subdiv=1, aspect=cfg.aspect)
-    img = np.asarray(render_sample_fast_chw(
+    img = np.asarray(render_sample_chw(
         mesh_scene, mesh_cam, st.replace(max_bounces=3), cfg, 0))
-    assert img.shape == (3, 16, 32) and np.isfinite(img).all()
-
-
-def test_bench_bigmesh_display(kernel_backend, monkeypatch):
-    """bench.py chunked-kernel row: the round-2 regression's exact path
-    (render_sample_fast_chw -> _bigmesh_chw -> BigMeshTracer)."""
-    from rvpt_tpu.ops import pathkernel as pk
-    from rvpt_tpu.render import render_sample_fast_chw
-
-    monkeypatch.setattr(pk, "BIG_CHUNK_T", 1024)
-    monkeypatch.setattr(pk, "BIG_CULL_K", 16)
-    monkeypatch.setattr(pk, "BIG_CHUNK_CLU", 1024 // 16)
-    monkeypatch.setattr(pk, "BIG_CHUNK_SUP",
-                        max(1024 // 16 // pk.CULL_G, 1))
-    monkeypatch.setattr(pk, "CULL_MAX_TRIS", 256)
-    scene, cam = builtin.mesh_demo(subdiv=3, aspect=2.0)
-    assert pk.is_bigmesh(scene)
-    assert pk.pack_cull_chunked(scene)[1]["n_chunks"] > 1
-
-    cfg = FilmConfig(width=32, height=16)
-    st = RenderSettings(max_bounces=2, aa=1)
-    img = np.asarray(render_sample_fast_chw(scene, cam, st, cfg, 0))
     assert img.shape == (3, 16, 32) and np.isfinite(img).all()
 
 

@@ -6,7 +6,7 @@ leaves are differentiable and the chain
 camera -> camera_matrix -> generate_rays -> trace couples them to the image.
 These tests pin that chain through BOTH gradient paths:
 
-* the fast custom-VJP path (ops.fast_grad): the kernel pullback returns ray
+* the hit-record gradient (ops.fast_grad): the replay's pullback returns ray
   origin/direction cotangents, which XLA chains back through generate_rays;
 * XLA autodiff of the integrator path (the oracle).
 
@@ -70,10 +70,10 @@ def scene():
 
 
 def test_camera_grads_fast_vjp_matches_xla_autodiff(scene):
-    """The fast-VJP chain (kernel fwd + replay bwd -> ray cotangents ->
+    """The hit-record chain (XLA fwd + replay bwd -> ray cotangents ->
     generate_rays transpose) must agree with XLA autodiff of the same math."""
     trace = make_fast_kajiya(scene, _INTEGRATOR_SITE, BOUNCES,
-                             style="standard", interpret=True)
+                             style="standard")
     loss_fast = _loss_fn(scene, trace)
     loss_xla = _loss_fn(scene, None)
 

@@ -1,4 +1,5 @@
-"""Custom-VJP fast trace vs plain autodiff through the XLA integrator."""
+"""Hit-record gradient (custom VJP) vs plain autodiff through the XLA
+integrator, and the replay's table lookups vs plain NumPy gathers."""
 
 import dataclasses
 
@@ -9,9 +10,8 @@ import pytest
 
 from rvpt_tpu import FilmConfig, RenderSettings
 from rvpt_tpu.core.types import Ray
-from rvpt_tpu.models.integrators import integrator_kajiya
+from rvpt_tpu.models.integrators import integrator_kajiya, kajiya_with_hits
 from rvpt_tpu.ops.fast_grad import kajiya_from_hits, make_fast_kajiya
-from rvpt_tpu.ops.pathkernel import PathTracer
 from rvpt_tpu.scene import builtin
 
 
@@ -32,17 +32,13 @@ def setup(scene_name="cornell", w=24, h=16):
 
 
 def test_replay_matches_integrator():
-    """kajiya_from_hits on recorded hits reproduces the megakernel/XLA
-    radiance."""
+    """kajiya_from_hits on the forward's recorded hits reproduces the XLA
+    integrator's radiance."""
     scene, pixel, ray = setup()
     frame = jnp.uint32(2)
-    pt = PathTracer(scene)
-    (r, g, b), record = pt.trace(
-        pixel, ray.origin, ray.direction, frame, 16, 3, collect_states=True,
-        interpret=True,
-    )
-    fams, idxs = pt.hits_from_record(record, pixel.shape[0], 3)
-    mk_img = np.stack([np.asarray(r), np.asarray(g), np.asarray(b)], -1)
+    out, fams, idxs = kajiya_with_hits(scene, ray, pixel, frame, 3,
+                                       salt_base=16)
+    mk_img = np.asarray(out)
     replay = np.asarray(
         kajiya_from_hits(scene, ray, pixel, frame, 16, fams, idxs)
     )
@@ -62,7 +58,7 @@ def test_fast_grad_matches_autodiff():
         col = integrator_kajiya(s, ray, pixel, frame, st, salt_base=jnp.uint32(16))
         return jnp.mean(col)
 
-    trace = make_fast_kajiya(scene, 16, 3, style="standard", interpret=True)
+    trace = make_fast_kajiya(scene, 16, 3, style="standard")
 
     def loss_fast(albedo):
         mats = dataclasses.replace(scene.materials, albedo=albedo)
@@ -82,7 +78,7 @@ def test_fast_grad_vertex_gradients():
     radius)."""
     scene, pixel, ray = setup("sphere_plane")
     frame = jnp.uint32(1)
-    trace = make_fast_kajiya(scene, 16, 2, style="standard", interpret=True)
+    trace = make_fast_kajiya(scene, 16, 2, style="standard")
 
     def loss(radius):
         s = dataclasses.replace(scene, sph_radius=radius)
@@ -105,12 +101,8 @@ def test_replay_soa_matches_reference_replay():
 
     scene, pixel, ray = setup()
     frame = jnp.uint32(2)
-    pt = PathTracer(scene)
-    _, record = pt.trace(
-        pixel, ray.origin, ray.direction, frame, 16, 3, style="standard",
-        collect_states=True, interpret=True,
-    )
-    fams, idxs = pt.hits_from_record(record, pixel.shape[0], 3)
+    _, fams, idxs = kajiya_with_hits(scene, ray, pixel, frame, 3, "standard",
+                                     salt_base=16)
     a = np.asarray(
         kajiya_from_hits(scene, ray, pixel, frame, 16, fams, idxs, "standard")
     )
@@ -144,68 +136,10 @@ def test_replay_soa_matches_reference_replay():
     assert np.allclose(ga, gb, rtol=1e-3, atol=1e-6)
 
 
-def test_pallas_backward_matches_soa_backward():
-    """The fused Pallas pullback (ops.pathkernel.bwd_path) == XLA reverse-AD of the
-    SoA replay, on every differentiable scene leaf plus ray origin/direction,
-    for both termination styles and both primitive mixes (tri+sphere scene,
-    sphere+plane scene)."""
-    geo_names = ["tri_v0", "tri_v1", "tri_v2", "sph_center", "sph_radius",
-                 "pln_normal", "pln_d"]
-    mat_names = ["albedo", "emission", "ior"]
-    for scene_name, style in [("cornell", "reference"),
-                              ("sphere_plane", "standard")]:
-        scene, pixel, ray = setup(scene_name)
-        frame = jnp.uint32(1)
-        tr_soa = make_fast_kajiya(scene, 16, 3, style=style, interpret=True,
-                                  backward="soa")
-        tr_pk = make_fast_kajiya(scene, 16, 3, style=style, interpret=True,
-                                 backward="pallas")
-
-        def run(trace):
-            def loss(diffs, o, d):
-                mats = dataclasses.replace(
-                    scene.materials, **{k: diffs["m_" + k] for k in mat_names}
-                )
-                s = dataclasses.replace(
-                    scene, materials=mats,
-                    **{k: diffs[k] for k in geo_names},
-                )
-                return jnp.mean(trace(s, o, d, pixel, frame))
-
-            diffs = {k: getattr(scene, k) for k in geo_names}
-            diffs.update(
-                {"m_" + k: getattr(scene.materials, k) for k in mat_names}
-            )
-            return jax.grad(loss, argnums=(0, 1, 2))(
-                diffs, ray.origin, ray.direction
-            )
-
-        gs, gp = run(tr_soa), run(tr_pk)
-        total = 0.0
-        for a, b in zip(jax.tree.leaves(gs), jax.tree.leaves(gp)):
-            a, b = np.asarray(a), np.asarray(b)
-            if a.size:
-                assert np.allclose(a, b, rtol=1e-4, atol=1e-6), (
-                    scene_name, style, np.abs(a - b).max()
-                )
-                total += float(np.abs(a).sum())
-        assert total > 0.0  # gradients actually flowed
-
-
-def test_pallas_backward_value_unchanged():
-    """custom_vjp with the Pallas pullback leaves the primal untouched."""
-    scene, pixel, ray = setup()
-    frame = jnp.uint32(3)
-    tr_soa = make_fast_kajiya(scene, 16, 3, interpret=True, backward="soa")
-    tr_pk = make_fast_kajiya(scene, 16, 3, interpret=True, backward="pallas")
-    a = np.asarray(tr_soa(scene, ray.origin, ray.direction, pixel, frame))
-    b = np.asarray(tr_pk(scene, ray.origin, ray.direction, pixel, frame))
-    assert np.array_equal(a, b)
-
-
 def test_fast_grad_culled_mesh_matches_autodiff():
-    """The custom VJP also serves BVH-attached scenes (the megakernel's SMEM
-    culled path records the same global hit indices the replay gathers)."""
+    """The custom VJP also serves BVH-attached scenes: the forward's search
+    route (BVH traversal on the CPU) records the leaf-ordered triangle
+    indices the replay gathers."""
     cfg = FilmConfig(width=16, height=8)
     scene, cam = builtin.mesh_demo(subdiv=0, aspect=cfg.aspect)
     from rvpt_tpu.core import rng
@@ -226,14 +160,14 @@ def test_fast_grad_culled_mesh_matches_autodiff():
         col = integrator_kajiya(s, ray, pixel, frame, st, salt_base=jnp.uint32(16))
         return jnp.mean(col)
 
-    trace = make_fast_kajiya(scene, 16, 2, style="standard", interpret=True)
+    trace = make_fast_kajiya(scene, 16, 2, style="standard")
 
     def loss_fast(albedo):
         mats = dataclasses.replace(scene.materials, albedo=albedo)
         s = dataclasses.replace(scene, materials=mats)
         return jnp.mean(trace(s, ray.origin, ray.direction, pixel, frame))
 
-    assert PathTracer(scene).meta.get("culled"), "scene must take the culled path"
+    assert scene.bvh is not None
     g_xla = np.asarray(jax.grad(loss_xla)(scene.materials.albedo))
     g_fast = np.asarray(jax.grad(loss_fast)(scene.materials.albedo))
     assert np.abs(g_xla).max() > 0
@@ -242,17 +176,13 @@ def test_fast_grad_culled_mesh_matches_autodiff():
     )
 
 
-def test_fast_grad_bigmesh_matches_autodiff(monkeypatch):
-    """Meshes beyond CULL_MAX_TRIS: the chunked kernel forward emits hit
-    records and the SoA replay backward reproduces XLA autodiff."""
-    from rvpt_tpu.ops import pathkernel as pk
+def test_fast_grad_bigmesh_matches_autodiff():
+    """A random BVH mesh whose triangle table is past the select-sum lookup
+    width: the replay gathers vertices with plain gathers and its backward
+    scatter-adds them, and the result reproduces XLA autodiff."""
+    from rvpt_tpu.ops import replay_soa as rs
     from rvpt_tpu.scene.bvh import attach_bvh
     from rvpt_tpu.scene.scene import SceneBuilder
-
-    monkeypatch.setattr(pk, "BIG_CHUNK_T", 1024)
-    monkeypatch.setattr(pk, "BIG_CHUNK_CLU", 1024 // pk.CULL_K)
-    monkeypatch.setattr(pk, "BIG_CHUNK_SUP", 1024 // pk.CULL_K // pk.CULL_G)
-    monkeypatch.setattr(pk, "CULL_MAX_TRIS", 64)
 
     rng_np = np.random.default_rng(23)
     n_tri = 120
@@ -267,6 +197,7 @@ def test_fast_grad_bigmesh_matches_autodiff(monkeypatch):
     lm = b.add_material(albedo=(0, 0, 0), emission=(4, 4, 4))
     b.add_sphere((0.0, 5.0, 2.0), 1.0, lm)
     scene = attach_bvh(b.build())
+    assert scene.num_triangles > rs._LOOKUP_UNROLL
 
     cfg = FilmConfig(width=16, height=8)
     cam = builtin.sphere_plane(aspect=cfg.aspect)[1]
@@ -288,7 +219,7 @@ def test_fast_grad_bigmesh_matches_autodiff(monkeypatch):
         col = integrator_kajiya(s, ray, pixel, frame, st, salt_base=jnp.uint32(16))
         return jnp.mean(col)
 
-    trace = make_fast_kajiya(scene, 16, 2, style="standard", interpret=True)
+    trace = make_fast_kajiya(scene, 16, 2, style="standard")
 
     def loss_fast(albedo):
         mats = dataclasses.replace(scene.materials, albedo=albedo)
@@ -303,122 +234,72 @@ def test_fast_grad_bigmesh_matches_autodiff(monkeypatch):
     )
 
 
-def test_big_table_blocked_mm_lookup_and_segsum():
-    """The >4096-row T-blocked one-hot kernels (replay_soa._gather_mm_big /
-    _segsum_mm_big) match a plain gather / scatter-add exactly, including
-    through the _lookup_group custom VJP (the mesh-20k+ gradient path)."""
+def _segsum_ref(idx, gs, t_rows):
+    """Per-row sums of each cotangent column (NumPy scatter-add)."""
+    ref = np.zeros((t_rows, len(gs)), np.float32)
+    for k, g in enumerate(gs):
+        np.add.at(ref[:, k], np.asarray(idx), np.asarray(g))
+    return ref
+
+
+def _check_lookup_and_grad(tables, idx, gs):
+    """_lookup_group == NumPy gather; its transpose == NumPy scatter-add."""
     from rvpt_tpu.ops import replay_soa as rs
 
-    rng = np.random.default_rng(7)
-    t_rows, n, c = 4097 + 1500, 2048 + 300, 5  # off-block-boundary sizes
-    tables = tuple(
-        jnp.asarray(rng.standard_normal(t_rows), jnp.float32)
-        for _ in range(c)
-    )
-    idx = jnp.asarray(rng.integers(0, t_rows, n), jnp.int32)
-
-    out = rs._gather_mm_big(tables, idx)
+    out = rs._lookup_group(tables, idx)
     for o, tab in zip(out, tables):
-        np.testing.assert_array_equal(np.asarray(o), np.asarray(tab[idx]))
+        np.testing.assert_array_equal(np.asarray(o),
+                                      np.asarray(tab)[np.asarray(idx)])
+    _, vjp = jax.vjp(lambda tabs: rs._lookup_group(tabs, idx), tables)
+    (g,) = vjp(gs)
+    np.testing.assert_allclose(np.stack([np.asarray(x) for x in g], 1),
+                               _segsum_ref(idx, gs, tables[0].shape[0]),
+                               rtol=1e-5, atol=1e-5)
 
-    gs = tuple(
-        jnp.asarray(rng.standard_normal(n), jnp.float32) for _ in range(c)
-    )
-    seg = np.asarray(rs._segsum_mm_big(idx, gs, t_rows))
-    ref = np.zeros((t_rows, c), np.float32)
-    for k in range(c):
-        np.add.at(ref[:, k], np.asarray(idx), np.asarray(gs[k]))
-    np.testing.assert_allclose(seg, ref, rtol=1e-5, atol=1e-5)
 
-    def loss(tabs):
-        return sum(jnp.sum(o ** 2) for o in rs._lookup_group(tabs, idx))
+def _tables_and_cotangents(rng, t_rows, n, c):
+    tables = tuple(jnp.asarray(rng.standard_normal(t_rows), jnp.float32)
+                   for _ in range(c))
+    gs = tuple(jnp.asarray(rng.standard_normal(n), jnp.float32)
+               for _ in range(c))
+    return tables, gs
 
-    assert t_rows > rs._SEG_MM_MAX  # routes through the blocked kernels
-    g = jax.grad(loss)(tables)
-    g_ref = jax.grad(
-        lambda tabs: sum(jnp.sum(t[idx] ** 2) for t in tabs)
-    )(tables)
-    for a, b in zip(g, g_ref):
-        np.testing.assert_allclose(
-            np.asarray(a), np.asarray(b), rtol=1e-4, atol=1e-4
-        )
+
+def test_big_table_blocked_mm_lookup_and_segsum():
+    """Mesh-20k-class tables (>4,096 rows, off-block-boundary sizes): the
+    replay's lookup is an exact gather and its cotangent the exact
+    per-row sum."""
+    rng = np.random.default_rng(7)
+    t_rows, n, c = 4097 + 1500, 2048 + 300, 5
+    tables, gs = _tables_and_cotangents(rng, t_rows, n, c)
+    idx = jnp.asarray(rng.integers(0, t_rows, n), jnp.int32)
+    _check_lookup_and_grad(tables, idx, gs)
 
 
 def test_big_table_blocked_mm_clustered_ranges():
-    """Clustered indices exercise the range-SKIPPING path of the blocked
-    kernels in CI: each 1024-ray block's ids sit in a narrow window at a
-    nonzero offset, so [lo, hi] covers a strict subset of table blocks
-    with lo > 0 (the uniform-index test above spans every block; ADVICE
-    r4).  Includes a partial trailing ray block so its idx[-1] padding
-    keeps the window tight."""
-    from rvpt_tpu.ops import replay_soa as rs
-
+    """Clustered indices (each 1024-ray block draws from a narrow window of
+    the table, as BVH leaf order gives) with a partial trailing block."""
     rng = np.random.default_rng(11)
-    t_rows, c = 9 * rs._TBLK + 77, 3
-    n = 3 * rs._SEG_BLK + 300                    # partial trailing block
-    tables = tuple(
-        jnp.asarray(rng.standard_normal(t_rows), jnp.float32)
-        for _ in range(c)
-    )
-    # Block k draws from table window [base_k, base_k + 512): lo > 0 for
-    # every block past the first, hi < nblk-1 for all but the last.
-    bases = [2 * rs._TBLK + 100, 5 * rs._TBLK, 8 * rs._TBLK + 400,
-             4 * rs._TBLK + 50]
+    t_rows, c = 9 * 1024 + 77, 3
+    n = 3 * 1024 + 300
+    tables, gs = _tables_and_cotangents(rng, t_rows, n, c)
+    bases = [2 * 1024 + 100, 5 * 1024, 8 * 1024 + 400, 4 * 1024 + 50]
     idx = np.concatenate([
-        rng.integers(b, min(b + 512, t_rows), rs._SEG_BLK)
-        for b in bases
+        rng.integers(b, min(b + 512, t_rows), 1024) for b in bases
     ])[:n]
-    idx = jnp.asarray(idx, jnp.int32)
-
-    out = rs._gather_mm_big(tables, idx)
-    for o, tab in zip(out, tables):
-        np.testing.assert_array_equal(np.asarray(o), np.asarray(tab[idx]))
-
-    gs = tuple(
-        jnp.asarray(rng.standard_normal(n), jnp.float32) for _ in range(c)
-    )
-    seg = np.asarray(rs._segsum_mm_big(idx, gs, t_rows))
-    ref = np.zeros((t_rows, c), np.float32)
-    for k in range(c):
-        np.add.at(ref[:, k], np.asarray(idx), np.asarray(gs[k]))
-    np.testing.assert_allclose(seg, ref, rtol=1e-5, atol=1e-5)
+    _check_lookup_and_grad(tables, jnp.asarray(idx, jnp.int32), gs)
 
 
 def test_huge_table_chunked_lookup_and_grad():
-    """Above _SEG_MM_BIG_MAX rows (the VMEM budget of the T-blocked
-    kernels) lookups split into table chunks (_gather_mm_huge /
-    _segsum_mm_huge) instead of silently reverting to the serialized
-    gather (VERDICT r4 item 7).  Exactness vs a plain gather/scatter-add,
-    chunk boundaries straddled."""
-    from rvpt_tpu.ops import replay_soa as rs
-
+    """Tables past 131,072 rows, indices on both sides of row 131,072 and
+    at the end of the table."""
     rng = np.random.default_rng(3)
-    big = rs._SEG_MM_BIG_MAX
-    t_rows, n, c = big + 2 * rs._TBLK + 123, 2 * rs._SEG_BLK + 77, 4
-    tables = tuple(
-        jnp.asarray(rng.standard_normal(t_rows), jnp.float32)
-        for _ in range(c)
-    )
-    # Indices on both sides of (and straddling) the chunk boundary.
+    big = 131072
+    t_rows, n, c = big + 2 * 1024 + 123, 2 * 1024 + 77, 4
+    tables, gs = _tables_and_cotangents(rng, t_rows, n, c)
     idx = np.concatenate([
         rng.integers(0, t_rows, n - 600),
         rng.integers(big - 300, big + 300, 300),
         rng.integers(t_rows - 200, t_rows, 300),
     ])
-    idx = jnp.asarray(idx, jnp.int32)
-
-    out = rs._lookup_group(tables, idx)
-    for o, tab in zip(out, tables):
-        np.testing.assert_array_equal(np.asarray(o), np.asarray(tab[idx]))
-
-    def loss(tabs):
-        return sum(jnp.sum(o ** 2) for o in rs._lookup_group(tabs, idx))
-
-    g = jax.grad(loss)(tables)
-    g_ref = jax.grad(
-        lambda tabs: sum(jnp.sum(t[idx] ** 2) for t in tabs)
-    )(tables)
-    for a, b in zip(g, g_ref):
-        np.testing.assert_allclose(
-            np.asarray(a), np.asarray(b), rtol=1e-4, atol=1e-4
-        )
+    _check_lookup_and_grad(tables, jnp.asarray(idx, jnp.int32), gs)

@@ -65,7 +65,7 @@ def test_dual_estimator_unbiased_direction():
 
 
 def test_recover_sphere_radius_fast_path():
-    """Geometry recovery through the custom-VJP kernel path: a MIRROR
+    """Geometry recovery through the hit-record gradient: a MIRROR
     sphere under the gradient sky — the reflected sky color varies
     continuously with the radius-dependent normal field, so the interior
     pathwise gradient (the VJP's sph_radius cotangent, ops/fast_grad.py)
@@ -88,7 +88,7 @@ def test_recover_sphere_radius_fast_path():
 
     rec, losses, _ = inverse.recover(
         mirror_scene(0.7), cam, st, cfg, None, target, steps=80,
-        learning_rate=2e-2, groups=("spheres",), fast="interpret",
+        learning_rate=2e-2, groups=("spheres",), fast=True,
     )
     got = float(np.asarray(rec.sph_radius)[0])
     # Radius/depth are weakly coupled through angular size (the center may
@@ -116,7 +116,7 @@ def test_camera_group_trains():
         cam_true, rotation=cam_true.rotation + jnp.float32(0.05))
     step, opt_state = inverse.make_train_step(
         scene, cam0, st, cfg, None, target, learning_rate=1e-2,
-        fast="interpret", groups=("camera",),
+        fast=True, groups=("camera",),
     )
     params = inverse.trainable_params(scene, ("camera",), cam0)
     new_params, _, loss = step(params, opt_state, jnp.uint32(0))
@@ -129,9 +129,8 @@ def test_camera_group_trains():
 
 
 def test_fast_train_step_aa2():
-    """aa > 1 on the fast path: per-sample VJPs are averaged (the former
-    aa == 1 restriction is lifted); the step runs finite with nonzero
-    gradient flow."""
+    """aa > 1 on the hit-record path: per-sample VJPs are averaged; the
+    step runs finite with nonzero gradient flow."""
     from rvpt_tpu.scene import builtin
 
     cfg = FilmConfig(width=32, height=16)
@@ -140,7 +139,7 @@ def test_fast_train_step_aa2():
     target = jnp.zeros((3, cfg.height, cfg.width), jnp.float32)
 
     step, opt = inverse.make_train_step(
-        scene, camera, settings, cfg, None, target, fast="interpret"
+        scene, camera, settings, cfg, None, target, fast=True
     )
     p0 = inverse.trainable_params(scene)
     p1, _, loss = step(p0, opt, jnp.uint32(0))
@@ -150,7 +149,7 @@ def test_fast_train_step_aa2():
 
 
 def test_fast_train_step_matches_single_device():
-    """The custom-VJP path-kernel trainer: sharded (4x2 mesh, psum'd scene
+    """The hit-record-gradient trainer: sharded (4x2 mesh, psum'd scene
     grads) and single-device fast steps produce matching updates, and both
     run finite."""
     import jax.numpy as jnp
@@ -168,13 +167,13 @@ def test_fast_train_step_matches_single_device():
     target = jnp.zeros((3, cfg.height, cfg.width), jnp.float32)
 
     step1, opt1 = make_train_step(
-        scene, camera, settings, cfg, None, target, fast="interpret"
+        scene, camera, settings, cfg, None, target, fast=True
     )
     p1, _, loss1 = step1(trainable_params(scene), opt1, jnp.uint32(0))
 
     mesh = mesh_mod.make_mesh(8, 1)
     step2, opt2 = make_train_step(
-        scene, camera, settings, cfg, mesh, target, fast="interpret"
+        scene, camera, settings, cfg, mesh, target, fast=True
     )
     p2, _, loss2 = step2(trainable_params(scene), opt2, jnp.uint32(0))
 
@@ -187,7 +186,7 @@ def test_fast_train_step_matches_single_device():
     # spp=2 mesh exercises the rank-salted decorrelated gradient estimator
     mesh2 = mesh_mod.make_mesh(4, 2)
     step3, opt3 = make_train_step(
-        scene, camera, settings, cfg, mesh2, target, fast="interpret"
+        scene, camera, settings, cfg, mesh2, target, fast=True
     )
     p3, _, loss3 = step3(trainable_params(scene), opt3, jnp.uint32(0))
     assert np.isfinite(float(loss3))

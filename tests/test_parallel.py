@@ -95,165 +95,37 @@ def test_graft_entry_single():
     assert bool(jnp.isfinite(out).all())
 
 
-def test_sharded_fast_path_kernel():
-    """The path-kernel-backed sharded renderer (shard_map + in-kernel raygen)
-    is bit-identical across mesh shapes, and its (tiles x spp) mesh equals
-    the mean of the per-rank salt renders."""
-    from rvpt_tpu.models.integrators import AA_STRIDE
-    from rvpt_tpu.ops.pathkernel import PathTracer, camera_params
-    from rvpt_tpu.parallel.sharded import render_sample_sharded_fast
-    from rvpt_tpu.render import _INTEGRATOR_SITE, _JITTER_SITE, _pixel_grid
-
-    scene, cam = builtin.cornell_box(aspect=2.0)
-    cfg = FilmConfig(width=64, height=32)
-    st = RenderSettings(max_bounces=3, style="standard")
-
-    # single-device reference: the same kernel, unsharded
-    pixel, _, _ = _pixel_grid(cfg)
-    pt = PathTracer(scene)
-    cp = camera_params(cam, cfg)
-    r, g, b = pt.trace(
-        pixel, None, None, jnp.uint32(0), salt_base=_INTEGRATOR_SITE,
-        max_bounces=3, style="standard", gen_rays=True, cam_params=cp,
-        cam_mode=cam.mode, jitter_salt=_JITTER_SITE, interpret=True,
-    )
-    ref = np.stack([np.asarray(r), np.asarray(g), np.asarray(b)]).reshape(3, 32, 64)
-
-    mesh = mesh_mod.make_mesh(8, 1)
-    img = np.asarray(render_sample_sharded_fast(
-        scene, cam, st, cfg, 0, mesh, interpret=True))
-    assert np.array_equal(img, ref)
-
-    # spp=2 mesh: mean of the rank-0 and rank-1 salt streams
-    mesh2 = mesh_mod.make_mesh(4, 2)
-    img2 = np.asarray(render_sample_sharded_fast(
-        scene, cam, st, cfg, 0, mesh2, interpret=True))
-    r1, g1, b1 = pt.trace(
-        pixel, None, None, jnp.uint32(0),
-        salt_base=AA_STRIDE + _INTEGRATOR_SITE,
-        max_bounces=3, style="standard", gen_rays=True, cam_params=cp,
-        cam_mode=cam.mode, jitter_salt=AA_STRIDE + _JITTER_SITE,
-        interpret=True,
-    )
-    rank1 = np.stack([np.asarray(r1), np.asarray(g1), np.asarray(b1)]).reshape(3, 32, 64)
-    assert np.allclose(img2, (ref + rank1) / 2.0, atol=1e-6)
-
-
-def test_sharded_fast_culled_mesh():
-    """BVH mesh scenes through the sharded fast path: pixels are permuted
-    into compact screen blocks before sharding (frustum-tight kernel tiles)
-    and unpermuted after — must equal the single-device fast display path."""
-    from rvpt_tpu.parallel.sharded import render_sample_sharded_fast
-    from rvpt_tpu.render import render_sample_fast_chw
-
-    scene, cam = builtin.mesh_demo(subdiv=1, aspect=2.0)
-    assert scene.bvh is not None
-    cfg = FilmConfig(width=64, height=32)
-    st = RenderSettings(max_bounces=3)
-
-    ref = np.asarray(render_sample_fast_chw(scene, cam, st, cfg, 0))
-    mesh = mesh_mod.make_mesh(8, 1)
-    img = np.asarray(render_sample_sharded_fast(
-        scene, cam, st, cfg, 0, mesh, interpret=True))
-    assert img.shape == ref.shape == (3, 32, 64)
-    assert np.allclose(img, ref, atol=1e-6)
-
-
-def test_sharded_fast_bigmesh(monkeypatch):
-    """Meshes beyond CULL_MAX_TRIS route through the chunked kernel per
-    shard; the sharded image must equal the XLA reference path."""
-    from rvpt_tpu.ops import pathkernel as pk
-    from rvpt_tpu.parallel.sharded import render_sample_sharded_fast
-    from rvpt_tpu.render import render_sample_chw
-    from rvpt_tpu.scene.bvh import attach_bvh
-    from rvpt_tpu.scene.scene import SceneBuilder
-
-    monkeypatch.setattr(pk, "BIG_CHUNK_T", 1024)
-    monkeypatch.setattr(pk, "BIG_CHUNK_CLU", 1024 // pk.CULL_K)
-    monkeypatch.setattr(pk, "BIG_CHUNK_SUP", 1024 // pk.CULL_K // pk.CULL_G)
-    monkeypatch.setattr(pk, "CULL_MAX_TRIS", 256)
-
-    rng_np = np.random.default_rng(17)
-    n_tri = 400
-    c = rng_np.uniform(-3, 3, size=(n_tri, 3)).astype(np.float32)
-    c[:, 2] += 5.0
-    e1 = rng_np.normal(0, 0.4, size=(n_tri, 3)).astype(np.float32)
-    e2 = rng_np.normal(0, 0.4, size=(n_tri, 3)).astype(np.float32)
-    b = SceneBuilder()
-    m = b.add_material(albedo=(0.6, 0.6, 0.6))
-    for a, v1, v2 in zip(c, c + e1, c + e2):
-        b.add_triangle(tuple(a), tuple(v1), tuple(v2), m)
-    lm = b.add_material(albedo=(0, 0, 0), emission=(4, 4, 4))
-    b.add_sphere((0.0, 6.0, 2.0), 1.0, lm)
-    scene = attach_bvh(b.build())
-
-    cfg = FilmConfig(width=32, height=16)
-    cam = builtin.sphere_plane(aspect=cfg.aspect)[1]
-    st = RenderSettings(max_bounces=2)
-
-    mesh = mesh_mod.make_mesh(4, 2)
-    img = np.asarray(render_sample_sharded_fast(
-        scene, cam, st, cfg, 1, mesh, interpret=True))
-    # spp=2 averages two decorrelated sample sets; compare against the mean
-    # of the two XLA aa_offset renders
-    from rvpt_tpu.render import render_pixels, _pixel_grid
-    pixel, xs, ys = _pixel_grid(cfg)
-    s0 = np.asarray(render_pixels(scene, cam, st, cfg, 1, pixel, xs, ys,
-                                  aa_offset=0))
-    s1 = np.asarray(render_pixels(scene, cam, st, cfg, 1, pixel, xs, ys,
-                                  aa_offset=1))
-    want = ((s0 + s1) / 2.0).T.reshape(3, 16, 32)
-    close = np.isclose(img, want, rtol=1e-4, atol=1e-4)
-    assert close.mean() > 0.995, f"only {close.mean():.4f} of pixels match"
-
-
-def test_sharded_steady_loop_rides_kernels(monkeypatch):
-    """render_frame_sharded routes kernel-eligible frames through the fused
-    path kernels (reference steady loop rvpt.cpp:346-404): with the kernel
-    backend forced, the sharded step must never touch the XLA sharded
-    sampler, and its film must equal accumulating the single-device fast
-    sample (spp axis 1, bit-identical RNG by global pixel id)."""
+def test_sharded_steady_loop_rides_kernels():
+    """render_frame_sharded (the reference's steady loop, rvpt.cpp:346-404,
+    over the mesh) on a BVH mesh accumulates exactly the single-device
+    sample: spp axis 1, RNG keyed by global pixel id."""
     from rvpt_tpu.ops import film as film_ops
-    from rvpt_tpu.ops import intersect as im
-    from rvpt_tpu.ops.pathkernel import PathTracer, camera_params
     from rvpt_tpu.parallel import sharded
-    from rvpt_tpu.render import _INTEGRATOR_SITE, _JITTER_SITE, _pixel_grid
 
-    monkeypatch.setattr(im, "_BACKEND", "pallas")
     scene, cam = builtin.mesh_demo(subdiv=1, aspect=2.0)
     cfg = FilmConfig(width=64, height=32)
     st = RenderSettings(max_bounces=2)
-    assert sharded._sharded_fast_eligible(scene, st)
-
-    def boom(*a, **k):  # the steady loop must not fall back to XLA
-        raise AssertionError("XLA sharded sampler used for an eligible frame")
-
-    monkeypatch.setattr(sharded, "render_sample_sharded", boom)
 
     mesh = mesh_mod.make_mesh(8, 1)
     film = film_ops.Film.create(cfg.height, cfg.width)
     film, accum = sharded.render_frame_sharded(
-        scene, cam, st, cfg, film, jnp.bool_(True), mesh, interpret=True)
-
-    # must equal accumulating the kernel-backed sharded sample (whose parity
-    # with the single-device fast path is pinned by the tests above)
-    ref = np.asarray(sharded.render_sample_sharded_fast(
-        scene, cam, st, cfg, 0, mesh, interpret=True))
+        scene, cam, st, cfg, film, jnp.bool_(True), mesh)
+    ref = np.asarray(R.render_sample_chw(scene, cam, st, cfg, 0))
     assert np.array_equal(np.asarray(accum), ref)
+    assert int(film.frame) == 1
 
-    # split-screen frames are kernel-eligible too (per-quadrant sharding)
-    st_split = st.replace(top_left_render_mode=3)
-    assert sharded._sharded_fast_eligible(scene, st_split)
+    # the jitted steady-loop closure gives the same frame up to the float32
+    # rounding of a differently fused program
+    step = sharded.make_render_fn(scene, cam, st, cfg, mesh)
+    _, accum2 = step(scene, cam, film_ops.Film.create(cfg.height, cfg.width),
+                     jnp.bool_(True))
+    assert np.allclose(np.asarray(accum2), ref, rtol=1e-5, atol=1e-6)
 
 
-@pytest.mark.parametrize("mode", [3, 5, 7, 10])
+@pytest.mark.parametrize("mode", list(range(11)))
 def test_sharded_fast_debug_modes(mode):
-    """Debug/Whitted/Hart modes through the sharded fast path ride the same
-    kernels as the single-chip display path and must match it exactly
-    (VERDICT r3: eligibility was Kajiya-only; now any mode shards)."""
-    from rvpt_tpu.parallel.sharded import render_sample_sharded_fast
-    from rvpt_tpu.render import render_sample_fast_chw
-
+    """Every integrator mode through the sharded renderer equals the
+    single-device render of the same mode."""
     scene, cam = builtin.cornell_box(aspect=2.0)
     cfg = FilmConfig(width=64, height=32)
     st = RenderSettings(max_bounces=2, top_left_render_mode=mode,
@@ -261,37 +133,29 @@ def test_sharded_fast_debug_modes(mode):
                         bottom_left_render_mode=mode,
                         bottom_right_render_mode=mode)
 
-    ref = np.asarray(render_sample_fast_chw(scene, cam, st, cfg, 0))
+    ref = np.asarray(R.render_sample_chw(scene, cam, st, cfg, 0))
     mesh = mesh_mod.make_mesh(8, 1)
-    img = np.asarray(render_sample_sharded_fast(
-        scene, cam, st, cfg, 0, mesh, interpret=True))
+    img = np.asarray(render_sample_sharded(scene, cam, st, cfg, 0, mesh))
     # atol 1e-5: shard-local batch shapes change reduction fusion order
     # (observed max diff 9e-6 on normalize() in mode 3).
     assert np.allclose(img, ref, atol=1e-5), f"mode {mode}"
 
 
 def test_sharded_fast_split_screen():
-    """4-way split through the sharded fast path: each quadrant's pixels are
-    sharded over the whole mesh in turn, rect-reassembled — must equal the
-    single-device fast split render (compute_pass.comp:134-144)."""
-    from rvpt_tpu.parallel.sharded import render_sample_sharded_fast
-    from rvpt_tpu.render import render_sample_fast_chw
-
+    """4-way split through the sharded renderer equals the single-device
+    split render (compute_pass.comp:134-144); a (4 x 2 spp) mesh stays
+    finite."""
     scene, cam = builtin.cornell_box(aspect=2.0)
     cfg = FilmConfig(width=64, height=32)
     st = RenderSettings(max_bounces=2, top_left_render_mode=3,
                         top_right_render_mode=9, bottom_left_render_mode=0,
                         bottom_right_render_mode=7)
 
-    ref = np.asarray(render_sample_fast_chw(scene, cam, st, cfg, 0))
+    ref = np.asarray(R.render_sample_chw(scene, cam, st, cfg, 0))
     mesh = mesh_mod.make_mesh(8, 1)
-    img = np.asarray(render_sample_sharded_fast(
-        scene, cam, st, cfg, 0, mesh, interpret=True))
+    img = np.asarray(render_sample_sharded(scene, cam, st, cfg, 0, mesh))
     assert np.allclose(img, ref, atol=1e-6)
 
-    # spp=2: quadrants pmean decorrelated rank streams; still finite and
-    # kajiya quadrant equals the mean of the two rank salt renders there.
     mesh2 = mesh_mod.make_mesh(4, 2)
-    img2 = np.asarray(render_sample_sharded_fast(
-        scene, cam, st, cfg, 0, mesh2, interpret=True))
+    img2 = np.asarray(render_sample_sharded(scene, cam, st, cfg, 0, mesh2))
     assert np.isfinite(img2).all()

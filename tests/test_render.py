@@ -1,4 +1,3 @@
-import jax.numpy as jnp
 import numpy as np
 
 from rvpt_tpu import render as R
@@ -70,105 +69,3 @@ def test_dirty_resets_film():
     assert int(film.frame) == 2
     film, _ = R.render_frame(scene, cam, st, cfg, film, True)
     assert int(film.frame) == 1
-
-
-def test_split_partition_matches_mode_masks():
-    """The static split partition must agree with the XLA path's
-    _mode_masks selection exactly, and its inverse permutation must
-    reassemble raster order."""
-    import numpy as np
-
-    from rvpt_tpu import FilmConfig, RenderSettings
-    from rvpt_tpu.render import (_mode_masks, _pixel_grid, _split_partition)
-
-    cfg = FilmConfig(width=31, height=17)   # odd sizes stress the edges
-    st = RenderSettings(top_left_render_mode=3, top_right_render_mode=0,
-                        bottom_left_render_mode=1, bottom_right_render_mode=9,
-                        split_ratio=(0.3, 0.6))
-    from rvpt_tpu.render import _rect_pixels
-
-    parts = _split_partition(cfg, st)
-    pixel, xs, ys = _pixel_grid(cfg)
-    want = np.asarray(_mode_masks(st, xs, ys, cfg))
-    got = np.full_like(want, -1)
-    for m, (y0, y1, x0, x1) in parts:
-        # rect pixel ids are row-major within the rect
-        pix = np.asarray(_rect_pixels(y0, y1, x0, x1, cfg.width))
-        ys2, xs2 = np.mgrid[y0:y1, x0:x1]
-        assert np.array_equal(pix, (xs2 + ys2 * cfg.width).ravel())
-        got[pix] = m
-    assert np.array_equal(got, want)
-
-
-def test_split_fast_path_reassembly(monkeypatch):
-    """_fast_chw_jit's split branch reassembles per-quadrant kernel outputs
-    into the film correctly (tracer stubbed: each mode returns its pixel ids
-    offset by the mode, so any permutation error is visible)."""
-    import numpy as np
-
-    from rvpt_tpu import FilmConfig, RenderSettings
-    from rvpt_tpu import render as render_mod
-    from rvpt_tpu.scene import builtin
-
-    def fake_trace(pt, scene, camera, settings, cfg, cam_params,
-                   pixel, frame, salt0, mode):
-        v = pixel.astype(jnp.float32) + 1000.0 * mode
-        return v, v + 0.25, v + 0.5
-
-    monkeypatch.setattr(render_mod, "_trace_mode_kernel", fake_trace)
-    cfg = FilmConfig(width=16, height=8)
-    st = RenderSettings(top_left_render_mode=3, top_right_render_mode=0,
-                        bottom_left_render_mode=1, bottom_right_render_mode=9)
-    scene, cam = builtin.cornell_box(aspect=cfg.aspect)
-    img = np.asarray(render_mod._fast_chw_jit(
-        scene, cam, st, cfg, jnp.uint32(0)))
-    pixel, xs, ys = render_mod._pixel_grid(cfg)
-    want_mode = np.asarray(render_mod._mode_masks(st, xs, ys, cfg))
-    want = (np.asarray(pixel, np.float32) + 1000.0 * want_mode).reshape(8, 16)
-    assert np.array_equal(img[0], want)
-    assert np.array_equal(img[1], want + 0.25)
-
-
-def test_primary_kernel_cached_across_bounce_settings(monkeypatch):
-    """Non-AO primary-mode kernels keep their static ``nrays`` arg pinned
-    to 1 across max_bounces settings (render.py), so toggling bounce count
-    never changes the traced primary program for debug views; AO's probe
-    loop legitimately follows max_bounces (its probe count IS the sample
-    count of integrator_AO's loop, integrators.glsl:152-200).  VERDICT r4
-    item 9: no bounce-dependent compile axis for non-AO primary modes.
-    """
-    from rvpt_tpu import FilmConfig, RenderSettings
-    from rvpt_tpu.ops import pathkernel as pk
-    from rvpt_tpu.render import render_sample_fast_chw
-    from rvpt_tpu.scene import builtin
-
-    from rvpt_tpu.ops import intersect as intersect_mod
-
-    cfg = FilmConfig(width=32, height=16)
-    scene, cam = builtin.cornell_box(aspect=cfg.aspect)
-    monkeypatch.setattr(intersect_mod, "_BACKEND", "pallas")
-
-    seen = []
-    orig = pk.PathTracer.trace_primary
-
-    def spy(self, pixel, frame, mode, **kw):
-        seen.append((mode, kw.get("nrays")))
-        return orig(self, pixel, frame, mode, **kw)
-
-    monkeypatch.setattr(pk.PathTracer, "trace_primary", spy)
-
-    def st(mode, nb):
-        return RenderSettings(
-            max_bounces=nb, top_left_render_mode=mode,
-            top_right_render_mode=mode, bottom_left_render_mode=mode,
-            bottom_right_render_mode=mode)
-
-    for nb in (2, 5, 8):
-        render_sample_fast_chw(scene, cam, st(3, nb), cfg, 0)  # normal view
-    assert {n for _, n in seen} == {1}, (
-        f"non-AO primary modes must pin nrays=1, saw {seen}")
-
-    seen.clear()
-    for nb in (2, 5):
-        render_sample_fast_chw(scene, cam, st(5, nb), cfg, 0)  # AO
-    assert [n for _, n in seen] == [2, 5]  # probe count == max_bounces

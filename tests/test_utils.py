@@ -2,6 +2,7 @@ import time
 
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
 from rvpt_tpu.utils.checkpoint import load, save
 from rvpt_tpu.utils.timer import FrameTimer
@@ -71,19 +72,41 @@ def test_hot_reload_watcher(tmp_path):
     os.utime(path)  # restore sane mtime
 
 
-def test_block_order_is_permutation():
-    from rvpt_tpu.render import _block_order
+def test_gpu_card_reads_nvidia_smi(monkeypatch):
+    """gpu_card returns nvidia-smi's name/power-limit line as printed."""
+    import subprocess
 
-    import numpy as np
+    from rvpt_tpu.utils import profiling
 
-    for w, h in ((192, 128), (24, 16), (1920, 1088)):
-        order, inv = _block_order(w, h)
-        x = np.arange(w * h)
-        assert (x[order][inv] == x).all()
-        # first tile = first 128x64 screen block (when film is big enough)
-        if w >= 128 and h >= 64:
-            ys, xs = order[: 128 * 64] // w, order[: 128 * 64] % w
-            assert xs.max() < 128 and ys.max() < 64
+    seen = {}
+
+    def fake_run(cmd, **kw):
+        seen["cmd"] = cmd
+        return subprocess.CompletedProcess(
+            cmd, 0, stdout="NVIDIA H100 80GB HBM3, 700.00 W\n", stderr="")
+
+    monkeypatch.setattr(profiling.subprocess, "run", fake_run)
+    assert profiling.gpu_card() == "NVIDIA H100 80GB HBM3, 700.00 W"
+    assert seen["cmd"] == ["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"]
+
+
+@pytest.mark.parametrize("error", [FileNotFoundError("nvidia-smi"),
+                                   "CalledProcessError"])
+def test_gpu_card_none_without_a_card(error, monkeypatch):
+    """No nvidia-smi, or nvidia-smi failing, gives None (no card line)."""
+    import subprocess
+
+    from rvpt_tpu.utils import profiling
+
+    if error == "CalledProcessError":
+        error = subprocess.CalledProcessError(9, ["nvidia-smi"])
+
+    def fake_run(cmd, **kw):
+        raise error
+
+    monkeypatch.setattr(profiling.subprocess, "run", fake_run)
+    assert profiling.gpu_card() is None
 
 
 def test_profiling_helpers():
